@@ -1,0 +1,142 @@
+"""Exact-scan search over a u8 store (port of cosdata_tpu/ops/flat_scan.py,
+the codes engine with ``select="bins"``).
+
+Five stages:
+
+1. the caller quantizes the queries to centered int8 codes;
+2. the u8_bin_max kernel scans the whole store and writes ONE (B, cap/G)
+   f32 table of per-bin score maxima (contiguous bins of G rows) — the
+   (B, cap) scores never reach device memory;
+3. one exact ``torch.topk`` over the maxima picks the winning bins (the
+   reference's ``approx_max_k(recall_target=0.999)``);
+4. the winning bins expand as contiguous (G·D)-byte block rows of the code
+   table and are rescored in u8 space, chunked over queries;
+5. the shortlist is reranked in exact f32 against the raw rows.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from cosdata_tpu_torch.ops import distance as D
+from cosdata_tpu_torch.ops.kernels.u8_scan import u8_bin_max_from_store
+from cosdata_tpu_torch.ops.quantize import QuantizedU8, quantize_u8
+from cosdata_tpu_torch.ops.storage import cos_or_dot, exact_scores
+from cosdata_tpu_torch.ops.topk import NEG_INF
+
+#: the bins table's size limit (elements); past it the reference falls back
+#: to its per-chunk "approx" engine, which is not ported
+MAX_BIN_TABLE = 1 << 28
+#: bytes of the f32 candidate block that the expansion rescoring may hold
+EXPAND_BYTES = 1 << 30
+
+
+def _topk_take(scores, k, ids):
+    """Top-k of ``scores`` along dim 1, with the matching entries of ``ids``."""
+    vals, pos = torch.topk(scores, k, dim=1)
+    return vals, torch.gather(ids, 1, pos)
+
+
+def fused_flat_search_codes(
+    metric: str,
+    d_true: int,
+    d_pad: int,
+    k_bins: int,
+    group: int,
+    k_fetch: int,
+    k: int,
+    rerank: bool,
+    q: QuantizedU8,  # quantized u8 queries (B rows)
+    store: QuantizedU8,  # quantized u8 store (capacity rows)
+    raw: torch.Tensor | None,  # (cap, d_pad) f32/f16 raw rows when rerank
+    q_re: torch.Tensor | None,  # (B, d_pad) exact queries for the rerank
+    valid: torch.Tensor,  # (cap,) bool
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Returns (ids (B, k), vals (B, k)); ids are -1 where nothing was found."""
+    b = q.data.shape[0]
+    capacity = store.data.shape[0]
+    if b * (capacity // group) > MAX_BIN_TABLE:
+        raise NotImplementedError(
+            f"a ({b}, {capacity // group}) bin table exceeds {MAX_BIN_TABLE} elements; "
+            "the per-chunk select mode for it is not ported yet "
+            "(ROADMAP queue 1: the approx select mode)"
+        )
+    # stage 2: K1
+    bins = u8_bin_max_from_store(metric, group, q, store, valid, d_pad)
+    # stage 3: one exact selection over the maxima
+    k_bins = min(k_bins, capacity // group)
+    bin_s, bin_ids = torch.topk(bins, k_bins, dim=1)
+    del bins
+    live_bin = bin_s > NEG_INF / 2
+    # stage 4: contiguous block expansion + u8 rescore, chunked over queries
+    p_total = k_bins * group
+    kf = min(k_fetch, p_total)
+    cap_g = capacity // group
+    data_blk = store.data.view(cap_g, group * d_pad)
+    sums_blk = store.sums.view(cap_g, group)
+    mags_blk = store.mags.view(cap_g, group)
+    valid_blk = valid.view(cap_g, group)
+    offs = torch.arange(group, device=bin_ids.device)
+    q_rows = max(1, EXPAND_BYTES // (p_total * d_pad * 4))
+    vals = torch.empty((b, kf), dtype=torch.float32, device=bin_ids.device)
+    ids = torch.empty((b, kf), dtype=torch.int64, device=bin_ids.device)
+    for s in range(0, b, q_rows):
+        e = min(s + q_rows, b)
+        sel = bin_ids[s:e]
+        cdata = data_blk[sel].view(e - s, p_total, d_pad)
+        cc = D.diag_code_dot(q.data[s:e], cdata)
+        qs = q._replace(data=q.data[s:e], sums=q.sums[s:e], mags=q.mags[s:e])
+        dot = D.dequant_dot(qs, cc, sums_blk[sel].view(e - s, p_total), d_pad)
+        sc = cos_or_dot(metric, dot, qs.mags, mags_blk[sel].view(e - s, p_total))
+        live = valid_blk[sel].view(e - s, p_total) & live_bin[s:e].repeat_interleave(group, 1)
+        sc = torch.where(live, sc, NEG_INF)
+        rows = (sel[:, :, None] * group + offs).view(e - s, p_total)
+        vals[s:e], ids[s:e] = _topk_take(sc, kf, rows)
+    if rerank:
+        # stage 5, fused: exact rerank with the exact (f16-rounded) queries
+        ids, vals = exact_rerank_sorted(metric, d_true, d_pad, k, q_re, raw, ids, vals)
+    else:
+        vals, ids = vals[:, :k], ids[:, :k]
+    ids = torch.where(vals > NEG_INF / 2, ids, -1)
+    return ids, vals
+
+
+def fused_flat_search_codes_f16q(
+    metric: str,
+    d_true: int,
+    d_pad: int,
+    k_bins: int,
+    group: int,
+    k_fetch: int,
+    k: int,
+    q_f16: torch.Tensor,  # (B, d_pad) f16-rounded exact queries
+    lo,
+    hi,
+    store: QuantizedU8,
+    valid: torch.Tensor,
+):
+    """Stages 1-4 fed by one f16-rounded query tensor: the scan quantizes it
+    to u8 codes; the caller reranks against the same tensor."""
+    q = quantize_u8(q_f16.to(torch.float32), lo, hi, d_true)
+    return fused_flat_search_codes(
+        metric, d_true, d_pad, k_bins, group, k_fetch, k, False, q, store, None, None, valid
+    )
+
+
+def exact_rerank_sorted(metric, d_true, d_pad, k, q_re, raw, ids, vals):
+    """Exact f32 rerank of a (B, kf) shortlist; returns the top-k (ids, vals).
+
+    Raw rows are gathered in ascending id order and put back (gather
+    locality); the math is that of an unsorted gather."""
+    b, kf = ids.shape
+    lanes = torch.arange(d_pad, device=ids.device) < d_true
+    q_deq = torch.where(lanes[None, :], q_re.to(torch.float32), 0.0)
+    flat = torch.clamp_min(ids, 0).reshape(-1)
+    order = torch.argsort(flat)
+    cand = torch.empty((flat.shape[0], d_pad), dtype=torch.float32, device=ids.device)
+    cand[order] = raw[flat[order]].to(torch.float32)
+    re = exact_scores(metric, q_deq, cand.view(b, kf, d_pad))
+    re = torch.where(vals > NEG_INF / 2, re, NEG_INF)
+    vals_k, ids_k = _topk_take(re, min(k, kf), ids)
+    ids_k = torch.where(vals_k > NEG_INF / 2, ids_k, -1)
+    return ids_k, vals_k

@@ -1,0 +1,205 @@
+"""u8 scan with fused dequantization epilogue and per-bin max (kernel K1).
+
+Port of cosdata_tpu/ops/pallas/u8_scan.py. The CUDA kernel lives in
+``cosdata_tpu_torch/csrc/u8_bin_max.cu``; it is compiled by ``nvcc`` for
+``sm_90a`` at first use into ``cosdata_tpu_torch/build/`` and loaded with
+ctypes. Beside it sits the plain PyTorch version of the same function.
+:func:`u8_bin_max` takes the plain version for CPU tensors and launches the
+kernel for CUDA tensors, or raises.
+
+Bins are CONTIGUOUS: bin j of query i is the max over store rows
+j*group .. j*group+group-1, and the output is (B, C/group) f32.
+
+Math (ops/distance.dot_u8): with centered codes cc = Σ q_i v_i,
+  dot = a²·cc + k1·(sq + sv) + k0,
+  k1 = 128a² + ab,  k0 = a²·D_pad·128² + 2ab·128·D_pad + b²·d_true
+folded into a per-query additive term (k1·sq + k0) and a per-row additive
+term (k1·sv); cosine multiplies by reciprocal magnitudes; invalid rows get
+reciprocal 0 plus a -3e38 sink.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import NamedTuple
+
+import torch
+
+from cosdata_tpu_torch.ops.distance import code_matmul
+from cosdata_tpu_torch.ops.quantize import QuantizedU8
+
+_PKG = Path(__file__).resolve().parents[2]
+SOURCE = _PKG / "csrc" / "u8_bin_max.cu"
+BUILD_DIR = _PKG / "build"
+LIBRARY = BUILD_DIR / "libu8_bin_max.so"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17", "-Xptxas", "-v"]
+#: the kernel's bin width (one warp) and its Dp granularity
+KERNEL_GROUP = 32
+KERNEL_DP_MULTIPLE = 128
+_METRIC_CODE = {"cosine": 0, "dot": 1}
+
+
+class BinMaxTerms(NamedTuple):
+    """The kernel's inputs: query and row terms folded from QuantizedU8."""
+
+    q_codes: torch.Tensor  # (B, Dp) int8
+    q_add: torch.Tensor  # (B,) f32: k1*sq + k0
+    q_inv: torch.Tensor  # (B,) f32: 1/max(qmag, eps) (cosine) or 1
+    codes: torch.Tensor  # (C, Dp) int8
+    v_add: torch.Tensor  # (C,) f32: k1*sv
+    v_inv: torch.Tensor  # (C,) f32: valid/max(vmag, eps) (cosine) or valid
+    v_sink: torch.Tensor  # (C,) f32: 0 on valid rows, -3e38 on invalid
+    a2: torch.Tensor  # () f32: a²
+
+
+def bin_max_terms(metric: str, q: QuantizedU8, store: QuantizedU8, valid: torch.Tensor,
+                  d_pad: int) -> BinMaxTerms:
+    """Fold the dequantization and cosine terms (u8_scan.py:129-159 order)."""
+    if metric not in _METRIC_CODE:
+        raise NotImplementedError(
+            f"u8_bin_max computes cosine and dot, not {metric!r} "
+            "(ROADMAP queue 1: euclidean and hamming stage 1)"
+        )
+    a = q.a
+    b_ = q.b
+    k1 = 128.0 * a * a + a * b_
+    k0 = (
+        a * a * d_pad * 128.0 * 128.0
+        + 2.0 * a * b_ * 128.0 * d_pad
+        + b_ * b_ * q.dtrue
+    )
+    eps = 1e-30
+    q_add = k1 * q.sums.to(torch.float32) + k0
+    if metric == "cosine":
+        q_inv = 1.0 / torch.clamp_min(q.mags, eps)
+        v_inv = torch.where(valid, 1.0 / torch.clamp_min(store.mags, eps), 0.0)
+    else:
+        q_inv = torch.ones_like(q.mags)
+        v_inv = torch.where(valid, 1.0, 0.0)
+    v_add = k1 * store.sums.to(torch.float32)
+    v_sink = torch.where(valid, 0.0, -3.0e38)
+    return BinMaxTerms(q.data, q_add, q_inv, store.data, v_add, v_inv, v_sink, a * a)
+
+
+#: store rows per step of the plain version (bounds its (B, rows) scores)
+PLAIN_ROW_CHUNK = 1 << 16
+
+
+def u8_bin_max_plain(metric: str, group: int, t: BinMaxTerms) -> torch.Tensor:
+    """Plain PyTorch version: exact int8 product, the kernel's f32 epilogue
+    in the same op order, then the group max. Chunked over store rows so the
+    (B, chunk) scores stay bounded; the kernel writes no scores at all."""
+    b = t.q_codes.shape[0]
+    c = t.codes.shape[0]
+    out = torch.empty((b, c // group), dtype=torch.float32, device=t.codes.device)
+    step = max(PLAIN_ROW_CHUNK // group, 1) * group
+    for s in range(0, c, step):
+        e = min(s + step, c)
+        cc = code_matmul(t.q_codes, t.codes[s:e])
+        dot = t.a2 * cc.to(torch.float32)
+        dot = dot + t.v_add[None, s:e] + t.q_add[:, None]
+        sc = dot * t.v_inv[None, s:e]
+        if metric == "cosine":
+            sc = sc * t.q_inv[:, None]
+        sc = sc + t.v_sink[None, s:e]
+        out[:, s // group : e // group] = sc.view(b, (e - s) // group, group).amax(-1)
+    return out
+
+
+def build() -> str:
+    """Compile the kernel from the checkout's source; returns nvcc's output."""
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(nvcc):
+        raise RuntimeError("nvcc not found: the u8_bin_max kernel needs the CUDA toolkit")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = LIBRARY.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc, *NVCC_FLAGS, "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp), str(SOURCE)]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stdout}{res.stderr}")
+    os.replace(tmp, LIBRARY)
+    return res.stdout + res.stderr
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    if not LIBRARY.exists() or LIBRARY.stat().st_mtime < SOURCE.stat().st_mtime:
+        build()
+    lib = ctypes.CDLL(str(LIBRARY))
+    lib.u8_bin_max_launch.argtypes = (
+        [ctypes.c_int] + [ctypes.c_void_p] * 9
+        + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+    )
+    lib.u8_bin_max_launch.restype = ctypes.c_int
+    lib.u8_bin_max_error_string.argtypes = [ctypes.c_int]
+    lib.u8_bin_max_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check_cuda_args(metric: str, group: int, t: BinMaxTerms) -> None:
+    if metric not in _METRIC_CODE:
+        raise ValueError(f"u8_bin_max kernel takes cosine or dot, not {metric!r}")
+    if group != KERNEL_GROUP:
+        raise ValueError(f"u8_bin_max kernel takes group={KERNEL_GROUP}, not {group}")
+    dev = t.codes.device
+    b, dp = t.q_codes.shape
+    c = t.codes.shape[0]
+    if t.codes.shape != (c, dp) or c % group or dp % KERNEL_DP_MULTIPLE:
+        raise ValueError(f"bad shapes: q_codes {tuple(t.q_codes.shape)}, codes {tuple(t.codes.shape)}")
+    want = {
+        "q_codes": ((b, dp), torch.int8), "q_add": ((b,), torch.float32),
+        "q_inv": ((b,), torch.float32), "codes": ((c, dp), torch.int8),
+        "v_add": ((c,), torch.float32), "v_inv": ((c,), torch.float32),
+        "v_sink": ((c,), torch.float32), "a2": ((), torch.float32),
+    }
+    for name, (shape, dtype) in want.items():
+        x = getattr(t, name)
+        if x.device != dev or x.dtype != dtype or tuple(x.shape) != shape or not x.is_contiguous():
+            raise ValueError(
+                f"{name}: want {dtype} {shape} contiguous on {dev}, "
+                f"got {x.dtype} {tuple(x.shape)} on {x.device}"
+            )
+    if t.q_codes.data_ptr() % 16 or t.codes.data_ptr() % 16:
+        raise ValueError("code tensors must be 16-byte aligned")
+
+
+def u8_bin_max(metric: str, group: int, t: BinMaxTerms) -> torch.Tensor:
+    """(B, C/group) f32 contiguous bin maxima.
+
+    CPU tensors take :func:`u8_bin_max_plain`; CUDA tensors launch the
+    kernel (counted in ``u8_bin_max.launches``) or raise."""
+    if t.codes.device.type == "cpu":
+        return u8_bin_max_plain(metric, group, t)
+    _check_cuda_args(metric, group, t)
+    b, dp = t.q_codes.shape
+    c = t.codes.shape[0]
+    out = torch.empty((b, c // group), dtype=torch.float32, device=t.codes.device)
+    if out.numel() == 0:
+        return out
+    lib = _library()
+    with torch.cuda.device(t.codes.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.u8_bin_max_launch(
+            _METRIC_CODE[metric], t.q_codes.data_ptr(), t.q_add.data_ptr(),
+            t.q_inv.data_ptr(), t.codes.data_ptr(), t.v_add.data_ptr(),
+            t.v_inv.data_ptr(), t.v_sink.data_ptr(), t.a2.data_ptr(), out.data_ptr(),
+            b, c, dp, stream,
+        )
+    if err:
+        raise RuntimeError(f"u8_bin_max launch failed: {lib.u8_bin_max_error_string(err).decode()}")
+    u8_bin_max.launches += 1
+    return out
+
+
+u8_bin_max.launches = 0
+
+
+def u8_bin_max_from_store(metric: str, group: int, q: QuantizedU8, store: QuantizedU8,
+                          valid: torch.Tensor, d_pad: int) -> torch.Tensor:
+    """Fold the terms and run K1: (B, C/group) contiguous bin maxima."""
+    return u8_bin_max(metric, group, bin_max_terms(metric, q, store, valid, d_pad))

@@ -1,19 +1,26 @@
-"""Chip smoke of the PyTorch/CUDA port: dense u8 exact-scan search at 1M x 768.
+"""Chip smoke of the PyTorch/CUDA port: dense exact-scan search at 1M x 768,
+u8 and sub-byte.
 
 Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-Phases: 0 environment; 1 build the u8_bin_max kernel from the checkout's
-source; 2 the kernel against its plain PyTorch version at the main path's
-shapes; 3 the main path at 1M x 768 through DenseIndexHandle.search and
-FlatIndex.search, recall@10 against an exact f32 oracle and the kernel's
-launch count; 4 search semantics. Any failure exits non-zero. The last line
+Phases: 0 environment; 1 build both kernels (u8_bin_max, K1;
+subbyte_code_scores, K2) from the checkout's sources, in parallel; 2 K1
+against its plain PyTorch version at the u8 path's shapes; 3 the u8 path at
+1M x 768 through DenseIndexHandle.search and FlatIndex.search, recall@10
+against an exact f32 oracle and K1's launch count; 4 u8 search semantics;
+5 K2 against its plain version, bit for bit; 6 the sub-byte path on the
+same corpus through a quaternary DenseIndexHandle at 1M rows, recall@10 and
+K2's launch count; 7 quaternary search semantics; 8 a quaternary FlatIndex
+at 262,144 rows (the reference's bench row) at b1024 and b4096, then
+binary, octal and f16 at b1024. Any failure exits non-zero. The last line
 is one JSON object naming the device.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import importlib.util
 import json
 import statistics
@@ -25,11 +32,13 @@ import torch
 
 from cosdata_tpu_torch.core.collection import DenseIndexHandle, tune_dense_range
 from cosdata_tpu_torch.indexes.flat import FlatIndex
-from cosdata_tpu_torch.ops.kernels import u8_scan
-from cosdata_tpu_torch.ops.quantize import quantize_u8
+from cosdata_tpu_torch.ops.kernels import subbyte_scan, u8_scan
+from cosdata_tpu_torch.ops.quantize import quantize_subbyte, quantize_u8
 
 SEED = 0
 N, DIM, NQ = 1_000_000, 768, 4096
+#: the reference's quaternary bench row (BENCH_r05.json, bench.py:777-805)
+N_SUB = 262_144
 ADD_BATCH = 131072
 RTOL, ATOL = 2e-5, 1e-5
 MIN_RECALL = 0.99
@@ -148,14 +157,23 @@ def kernel_check(gen, dev) -> tuple[float, float, float]:
     return max_err, ms, plain_ms
 
 
-def main_path(gen, dev, card: str) -> int:
-    """Phases 3 and 4; returns the kernel's launches during the main path."""
-    phase(f"3 main path at {N} x {DIM}")
-    t0 = time.perf_counter()
-    x, q = clustered(N, NQ, DIM, gen, dev)
-    truth = exact_top10(q, x)
-    torch.cuda.synchronize()
-    print(f"corpus + oracle in {time.perf_counter() - t0:.1f} s")
+def check_results(name: str, ids, truth: torch.Tensor, t: float, card: str, gate: bool) -> None:
+    b = truth.shape[0]
+    if ids.shape != (b, 10) or (ids < 0).any():
+        fail(f"{name}: bad result shape {ids.shape} or missing ids")
+    r = recall10(ids, truth)
+    print(f"{name}: recall@10 {r:.4f}, {t * 1e3:.2f} ms/batch, {b / t:.1f} qps [{card}]", flush=True)
+    if gate and r < MIN_RECALL:
+        fail(f"{name}: recall@10 {r:.4f} < {MIN_RECALL}")
+
+
+def reset_counts() -> None:
+    u8_scan.u8_bin_max.launches = 0
+    subbyte_scan.subbyte_code_scores.launches = 0
+
+
+def main_path(x, q, truth, dev, card: str) -> int:
+    """Phases 3 and 4; returns K1's launches during the u8 path."""
     t0 = time.perf_counter()
     handle = DenseIndexHandle(DIM, dev)  # quantization "auto"
     for s in range(0, N, ADD_BATCH):
@@ -168,7 +186,7 @@ def main_path(gen, dev, card: str) -> int:
     print(f"ingest (both indexes) {time.perf_counter() - t0:.1f} s; handle range {handle.range}, "
           f"flat range {flat.store.range}")
     torch.cuda.reset_peak_memory_stats()
-    u8_scan.u8_bin_max.launches = 0
+    reset_counts()
     t_h, (h_ids, _) = timed_search(lambda: handle.search(q[:1024], 10))
     t_f1, (f1_ids, _) = timed_search(lambda: flat.search(q[:1024], 10, rerank=True))
     t_f4, (f4_ids, _) = timed_search(lambda: flat.search(q, 10, rerank=True))
@@ -178,12 +196,7 @@ def main_path(gen, dev, card: str) -> int:
         ("FlatIndex.search(rerank) b1024", f1_ids, t_f1, 1024),
         ("FlatIndex.search(rerank) b4096", f4_ids, t_f4, 4096),
     ):
-        if ids.shape != (b, 10) or (ids < 0).any():
-            fail(f"{name}: bad result shape {ids.shape} or missing ids")
-        r = recall10(ids, truth[:b])
-        print(f"{name}: recall@10 {r:.4f}, {t * 1e3:.2f} ms/batch, {b / t:.1f} qps [{card}]")
-        if r < MIN_RECALL:
-            fail(f"{name}: recall@10 {r:.4f} < {MIN_RECALL}")
+        check_results(name, ids, truth[:b], t, card, True)
     print(f"store bytes: handle {handle.index.store.device_nbytes()}, flat {flat.store.device_nbytes()}; "
           f"peak allocated during search {torch.cuda.max_memory_allocated()} B; "
           f"u8_bin_max launches {launches} [{card}]")
@@ -216,6 +229,121 @@ def main_path(gen, dev, card: str) -> int:
     return launches
 
 
+def k2_check(gen, dev) -> tuple[int, float, float]:
+    """K2 against its plain version, bit for bit, at the listed shapes;
+    returns (max_abs_err, ms, plain_ms)."""
+    max_err = 0
+    ms = plain_ms = None
+    for res in (1, 2, 3):
+        for dp in (128, 768):
+            d_true = dp - 28 if dp == 128 else dp
+            x = torch.rand((65_536, dp), generator=gen, device=dev) * 2 - 1
+            whole = quantize_subbyte(x, res, d_true)
+            del x
+            # the ragged C is a row chunk of the store: a strided view of its planes
+            for planes in (whole.planes, whole.planes[:, 96:]):
+                c = planes.shape[1]
+                for b in (8, 1024, 4096):
+                    q = quantize_subbyte(torch.rand((b, dp), generator=gen, device=dev) * 2 - 1, res, d_true)
+                    got = subbyte_scan.subbyte_code_scores(q.planes, planes, dp)
+                    want = subbyte_scan.subbyte_code_scores_plain(q.planes, planes, dp)
+                    torch.cuda.synchronize()
+                    e = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+                    print(f"  res={res} B={b:5d} C={c:6d} Dp={dp:4d} d_true={d_true:4d} max_abs_err={e}", flush=True)
+                    if e != 0 or got.shape != (b, c):
+                        fail(f"K2 disagrees with plain at res={res} B={b} C={c} Dp={dp}: {e}")
+                    max_err = max(max_err, e)
+                    if (res, b, c, dp) == (2, 1024, 65_536, 768):
+                        # plain, kernel, kernel, plain in turns
+                        p1 = cuda_ms(lambda: subbyte_scan.subbyte_code_scores_plain(q.planes, planes, dp), 5)
+                        k1 = cuda_ms(lambda: subbyte_scan.subbyte_code_scores(q.planes, planes, dp), 5)
+                        k2 = cuda_ms(lambda: subbyte_scan.subbyte_code_scores(q.planes, planes, dp), 5)
+                        p2 = cuda_ms(lambda: subbyte_scan.subbyte_code_scores_plain(q.planes, planes, dp), 5)
+                        ms, plain_ms = min(k1, k2), min(p1, p2)
+                        print(f"  time at res=2 B=1024 C=65536 Dp=768: kernel {k1:.3f}/{k2:.3f} ms, "
+                              f"plain {p1:.3f}/{p2:.3f} ms", flush=True)
+                    del got, want, q
+            del whole, planes
+            torch.cuda.empty_cache()
+    return max_err, ms, plain_ms
+
+
+def flat_index(kind: str, x, dev) -> FlatIndex:
+    flat = FlatIndex(DIM, dev, kind=kind, initial_capacity=len(x))
+    for s in range(0, len(x), ADD_BATCH):
+        flat.add(x[s : s + ADD_BATCH])
+    return flat
+
+
+def subbyte_path(x, q, truth, dev, card: str) -> int:
+    """Phases 6 to 8; returns K2's launches during the quaternary runs."""
+    k2 = subbyte_scan.subbyte_code_scores
+    t0 = time.perf_counter()
+    handle = DenseIndexHandle(DIM, dev, quantization={"type": "scalar", "data_type": "quaternary"})
+    for s in range(0, N, ADD_BATCH):
+        e = min(s + ADD_BATCH, N)
+        handle.add_batch(list(range(s, e)), x[s:e])
+    torch.cuda.synchronize()
+    print(f"quaternary handle ingest {time.perf_counter() - t0:.1f} s, rerank factor {handle.index._rerank_factor()}")
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t_h, (h_ids, _) = timed_search(lambda: handle.search(q[:1024], 10))
+    launches_h = k2.launches
+    check_results(f"quaternary DenseIndexHandle.search {N} rows b1024", h_ids, truth[:1024], t_h, card, True)
+    print(f"store bytes {handle.index.store.device_nbytes()}; peak allocated during search "
+          f"{torch.cuda.max_memory_allocated()} B; K2 launches {launches_h} [{card}]")
+    if launches_h == 0:
+        fail("the quaternary DenseIndexHandle path never launched K2")
+
+    phase("7 quaternary semantics")
+    probe = [7, N // 3]
+    ids, _ = handle.search(x[probe], 10)
+    if ids[:, 0].tolist() != probe:
+        fail(f"self-query returned {ids[:, 0].tolist()}, want {probe}")
+    handle.delete(7)
+    ids, _ = handle.search(x[probe], 10)
+    if 7 in ids:
+        fail("a deleted id came back")
+    mask = np.zeros(handle.index.n, bool)
+    mask[::20] = True
+    ids, _ = handle.search(q[:64], 10, row_mask=mask)
+    rows = np.asarray([handle.row_of[i] for i in ids[ids >= 0]])
+    if (ids < 0).any() or not mask[rows].all():
+        fail("masked search returned rows outside the mask")
+    print("self-query, delete, mask: ok")
+    del handle
+    torch.cuda.empty_cache()
+
+    phase(f"8 sub-byte and f16 FlatIndex at {N_SUB} x {DIM}")
+    xs = x[:N_SUB]
+    truth_s = exact_top10(q, xs)
+    flat = flat_index("quaternary", xs, dev)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t_f1, (f1_ids, _) = timed_search(lambda: flat.search(q[:1024], 10, rerank=True, rerank_factor=20))
+    t_f4, (f4_ids, _) = timed_search(lambda: flat.search(q, 10, rerank=True, rerank_factor=20))
+    launches_f = k2.launches
+    check_results("quaternary FlatIndex.search(rerank x20) b1024", f1_ids, truth_s[:1024], t_f1, card, True)
+    check_results("quaternary FlatIndex.search(rerank x20) b4096", f4_ids, truth_s, t_f4, card, True)
+    print(f"store bytes {flat.store.device_nbytes()}; peak allocated during search "
+          f"{torch.cuda.max_memory_allocated()} B; K2 launches {launches_f} [{card}]")
+    if launches_f == 0:
+        fail("the quaternary FlatIndex path never launched K2")
+    del flat
+    torch.cuda.empty_cache()
+    # octal at the handle's 5x ladder step and at 20x
+    for kind, factors in (("binary", (20,)), ("octal", (5, 20)), ("f16", (5,))):
+        flat = flat_index(kind, xs, dev)
+        for factor in factors:
+            reset_counts()
+            t, (ids, _) = timed_search(lambda: flat.search(q[:1024], 10, rerank=True, rerank_factor=factor), reps=1)
+            check_results(f"{kind} FlatIndex.search(rerank x{factor}) b1024", ids, truth_s[:1024], t, card, False)
+            print(f"  store bytes {flat.store.device_nbytes()}; K2 launches {k2.launches}")
+        del flat
+        torch.cuda.empty_cache()
+    return launches_h + launches_f
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke needs a CUDA card")
@@ -231,13 +359,16 @@ def main() -> None:
     for mod in ("aiohttp", "msgpack", "grpc"):
         print(f"package {mod}: {'present' if importlib.util.find_spec(mod) else 'absent'}")
 
-    phase("1 build u8_bin_max")
+    phase("1 build u8_bin_max and subbyte_code_scores")
     t0 = time.perf_counter()
-    log = u8_scan.build()
-    print(f"built {u8_scan.LIBRARY.name} in {time.perf_counter() - t0:.2f} s")
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            print(f"  {line.strip()}")
+    libs = (u8_scan.LIBRARY, subbyte_scan.LIBRARY)
+    with concurrent.futures.ThreadPoolExecutor(len(libs)) as ex:  # one nvcc per source, together
+        logs = list(ex.map(lambda lib: lib.build(), libs))
+    print(f"built {', '.join(lib.library.name for lib in libs)} in {time.perf_counter() - t0:.2f} s")
+    for lib, log in zip(libs, logs):
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                print(f"  {lib.name}: {line.strip()}")
 
     phase("2 kernel against plain")
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -245,7 +376,22 @@ def main() -> None:
     print(f"kernel vs plain: max_abs_err {max_err:.3g} (rtol {RTOL}, atol {ATOL}); "
           f"B=1024 C=1048576 Dp=768: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms [{card}]")
 
-    launches = main_path(gen, dev, card)
+    phase(f"3 main path at {N} x {DIM}")
+    t0 = time.perf_counter()
+    x, q = clustered(N, NQ, DIM, gen, dev)
+    truth = exact_top10(q, x)
+    torch.cuda.synchronize()
+    print(f"corpus + oracle in {time.perf_counter() - t0:.1f} s")
+    launches = main_path(x, q, truth, dev, card)
+    torch.cuda.empty_cache()
+
+    phase("5 K2 against plain")
+    k2_err, k2_ms, k2_plain_ms = k2_check(gen, dev)
+    print(f"K2 vs plain: max_abs_err {k2_err} (bit-exact required); res=2 B=1024 C=65536 Dp=768: "
+          f"kernel {k2_ms:.3f} ms, plain {k2_plain_ms:.3f} ms [{card}]")
+
+    phase(f"6 quaternary DenseIndexHandle at {N} x {DIM}")
+    k2_launches = subbyte_path(x, q, truth, dev, card)
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
     print(card)
@@ -258,6 +404,15 @@ def main() -> None:
         "max_abs_err": max_err,
         "ms": ms,
         "plain_ms": plain_ms,
+    }, {
+        "name": "subbyte_code_scores",
+        "route": "cuda",
+        "source": "cosdata_tpu_torch/csrc/subbyte_code_scores.cu",
+        "replaces": "cosdata_tpu/ops/pallas/subbyte_scan.py:55",
+        "launches": k2_launches,
+        "max_abs_err": k2_err,
+        "ms": k2_ms,
+        "plain_ms": k2_plain_ms,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

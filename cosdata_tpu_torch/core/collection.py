@@ -4,8 +4,9 @@
 ``Collection.search_dense`` and every REST and gRPC dense-search handler end
 in its ``search``. It keeps the sample-then-configure protocol (quantization
 "auto" buffers ``sample_threshold`` rows, tunes the u8 range on them, then
-builds) and the engine routing. Only u8 storage with cosine or dot is
-ported; every route that needs the graph raises ``NotImplementedError``.
+builds) and the engine routing. u8, sub-byte (binary, quaternary, octal),
+f16 and f32 storage with cosine or dot are ported; every route that needs
+the graph raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import numpy as np
 import torch
 
 from cosdata_tpu_torch.indexes.hnsw import HNSWIndex, HNSWParams
+from cosdata_tpu_torch.ops.storage import SUBBYTE_ALIAS
 
 
 def tune_dense_range(values, clamp_margin_percent: float = 1.0):
@@ -124,12 +126,11 @@ class DenseIndexHandle:
             self.sample_threshold = int(quantization.get("sample_threshold", 100))
         elif qt == "scalar":
             dt = quantization.get("data_type", "u8")
-            if dt in ("binary", "quaternary", "quaternay", "octal", "f16", "f32"):
-                raise NotImplementedError(
-                    f"{dt} storage is not ported yet (ROADMAP queue 1: sub-byte with K2, then f16 and f32)"
-                )
-            if dt != "u8":
+            if dt not in ("u8", "f16", "f32", *SUBBYTE_ALIAS):
                 raise ValueError(f"unknown data_type {dt}")
+            # the store maps a sub-byte name to its resolution; sub-byte
+            # buckets span the fixed [-1, 1], so the range is unused there
+            self.kind = dt
             rng = quantization.get("range")
             if rng:
                 lo, hi = float(rng["min"]), float(rng["max"])

@@ -1,9 +1,11 @@
-"""Flat (brute-force) dense index over a u8 store (port of
-cosdata_tpu/indexes/flat.py, the u8 codes engine with device raw rows).
+"""Flat (brute-force) dense index (port of cosdata_tpu/indexes/flat.py,
+with device raw rows).
 
-Stores at or above ``SCAN_THRESHOLD`` rows of capacity take the exact-scan
-engine of ops/flat_scan.py (stage 2 is the u8_bin_max kernel); smaller
-stores score the whole store with one product and a top-k.
+Stores at or above ``SCAN_THRESHOLD`` rows of capacity take an exact-scan
+engine of ops/flat_scan.py: u8 stores the codes engine (stage 2 is the
+u8_bin_max kernel), sub-byte and float stores the chunked scan (sub-byte
+code dots by kernel K2). Smaller stores score the whole store with one
+product and a top-k.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import torch
 
 from cosdata_tpu_torch.ops.flat_scan import (
     exact_rerank_sorted,
+    fused_flat_search,
     fused_flat_search_codes,
     fused_flat_search_codes_f16q,
 )
@@ -41,6 +44,7 @@ class FlatIndex:
         device,
         metric: str = "cosine",
         kind: str = "u8",
+        resolution: int = 2,
         range_: tuple[float, float] = (-1.0, 1.0),
         keep_raw: bool = True,
         initial_capacity: int = 1024,
@@ -51,8 +55,9 @@ class FlatIndex:
             # hold old+new copies of every array (incl. the raw rows)
             initial_capacity = -(-initial_capacity // self.SCAN_CHUNK) * self.SCAN_CHUNK
         self.store = VectorStore(
-            dim=dim, device=device, kind=kind, metric=metric, range=range_,
-            keep_raw=keep_raw, initial_capacity=initial_capacity, raw_dtype=raw_dtype,
+            dim=dim, device=device, kind=kind, metric=metric, resolution=resolution,
+            range=range_, keep_raw=keep_raw, initial_capacity=initial_capacity,
+            raw_dtype=raw_dtype,
         )
         self.alive = torch.ones((self.store.capacity,), dtype=torch.bool, device=self.store.device)
 
@@ -111,6 +116,13 @@ class FlatIndex:
                 store.grow_to(-(-store.capacity // self.SCAN_CHUNK) * self.SCAN_CHUNK)
                 self._sync_alive()
             mask = self._mask()
+            if store.kind != "u8":
+                lo, hi = store.range
+                return fused_flat_search(
+                    store.metric, store.score_kind, store.dim, store.dim_pad, store.resolution,
+                    k_fetch, top_k, self.SCAN_CHUNK, do_rerank, store.ship_queries(queries),
+                    lo, hi, store.arrays, store.raw if do_rerank else None, mask,
+                )
             k_bins = k_bins_for(k_fetch)
             if not do_rerank:
                 qc = store.ship_query_codes(queries)

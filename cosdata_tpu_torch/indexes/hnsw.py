@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from cosdata_tpu_torch.indexes.flat import GROUP, k_bins_for
-from cosdata_tpu_torch.ops.flat_scan import fused_flat_search_codes
+from cosdata_tpu_torch.ops.flat_scan import fused_flat_search, fused_flat_search_codes
 from cosdata_tpu_torch.ops.storage import VectorStore, as_rows
 from cosdata_tpu_torch.ops.topk import NEG_INF, topk
 
@@ -44,7 +44,7 @@ class HNSWParams:
 
 
 class HNSWIndex:
-    """A u8 store with tombstones, served by the exact scan."""
+    """A store with tombstones, served by the exact scan."""
 
     #: capacities at/above one scan chunk use the exact-scan engine
     SCAN_CHUNK = 1 << 16
@@ -55,6 +55,7 @@ class HNSWIndex:
         device,
         metric: str = "cosine",
         kind: str = "u8",
+        resolution: int = 2,
         range_: tuple[float, float] = (-1.0, 1.0),
         params: HNSWParams | None = None,
         keep_raw: bool = True,
@@ -64,8 +65,8 @@ class HNSWIndex:
         self.params = params or HNSWParams()
         self.seed = seed
         self.store = VectorStore(
-            dim=dim, device=device, kind=kind, metric=metric, range=range_,
-            keep_raw=keep_raw, initial_capacity=initial_capacity,
+            dim=dim, device=device, kind=kind, metric=metric, resolution=resolution,
+            range=range_, keep_raw=keep_raw, initial_capacity=initial_capacity,
         )
         self.alive = torch.ones((self.store.capacity,), dtype=torch.bool, device=self.store.device)
         self.n_deleted = 0
@@ -100,8 +101,11 @@ class HNSWIndex:
         self.n_deleted += 1
 
     def _rerank_factor(self) -> int:
-        """Exact-rerank shortlist depth as a multiple of top_k (5 for u8; the
-        reference's 20 for 1-2 bit codes comes with the sub-byte slice)."""
+        """Exact-rerank shortlist depth as a multiple of top_k: 1-2 bit codes
+        order so noisily that the true top-k routinely sits outside a 5x
+        shortlist, so they take 20x."""
+        if self.store.kind == "subbyte" and self.store.resolution <= 2:
+            return 20
         return 5
 
     def search_brute(
@@ -129,8 +133,9 @@ class HNSWIndex:
     def search_brute_device(
         self, queries, top_k: int = 10, mask: np.ndarray | None = None, rerank: bool = True
     ) -> tuple[torch.Tensor, torch.Tensor] | None:
-        """Device (ids, vals), or None for an empty index. Scan codes are
-        quantized from the exact f32 queries; the rerank uses the f16-rounded
+        """Device (ids, vals), or None for an empty index. u8 scan codes are
+        quantized from the exact f32 queries and the u8 rerank uses the
+        f16-rounded queries; other kinds scan and rerank with the exact f32
         queries (reference parity)."""
         store = self.store
         queries = as_rows(queries, store.device)
@@ -142,6 +147,13 @@ class HNSWIndex:
             if self.cap % self.SCAN_CHUNK:
                 store.grow_to(-(-self.cap // self.SCAN_CHUNK) * self.SCAN_CHUNK)
                 self._sync_capacity()
+            if store.kind != "u8":
+                lo, hi = store.range
+                return fused_flat_search(
+                    store.metric, store.score_kind, store.dim, store.dim_pad, store.resolution,
+                    keep, top_k, self.SCAN_CHUNK, do_rerank, store.ship_queries(queries),
+                    lo, hi, store.arrays, store.raw if do_rerank else None, self._valid(mask),
+                )
             qc = store.ship_query_codes(queries)
             q_re = store.pad_dims(queries, ship_f16=True) if do_rerank else None
             return fused_flat_search_codes(

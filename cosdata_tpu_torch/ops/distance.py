@@ -1,8 +1,12 @@
-"""Batched u8 scores (port of the u8 branch of cosdata_tpu/ops/distance.py).
+"""Batched scores (port of cosdata_tpu/ops/distance.py): (Q, D) queries x
+(N, D) stored -> (Q, N), higher is better.
 
 Quantized kinds score in dequantized space:
 
     x̂·ŷ = a²·Σ(u_q·u_v) + a·b·(Σu_q + Σu_v) + b²·d_true
+
+Sub-byte code dots come from kernel K2 (ops/kernels/subbyte_scan.py) at
+every size; float kinds are one full-f32 product.
 
 The int8 code contraction is exact on both devices: on the CPU it runs as
 an int32 product (an int8 ``torch.mm`` returns int8 and wraps); on CUDA,
@@ -12,15 +16,16 @@ of at most 1024 lanes at full code range (128·128·1024 = 2^24), so wider
 rows are split and the partials summed as int32. TF32 is switched off for
 these products.
 
-This path serves stores below the scan threshold; the large-store scan
-goes through the u8_bin_max kernel (ops/kernels/u8_scan.py).
+The u8 products here serve stores below the scan threshold; the
+large-store u8 scan goes through the u8_bin_max kernel
+(ops/kernels/u8_scan.py).
 """
 
 from __future__ import annotations
 
 import torch
 
-from cosdata_tpu_torch.ops.quantize import QuantizedU8
+from cosdata_tpu_torch.ops.quantize import QuantizedFloat, QuantizedSubByte, QuantizedU8
 
 _EPS = 1e-30
 #: widest lane slice whose int8 f32 product is exact (128·128·1024 = 2^24)
@@ -99,21 +104,57 @@ def euclidean_u8(q: QuantizedU8, v: QuantizedU8) -> torch.Tensor:
     return torch.sqrt(torch.clamp_min(d2, 0.0))
 
 
-def score(metric: str, kind: str, q: QuantizedU8, v: QuantizedU8, d: int) -> torch.Tensor:
+def _subbyte_scores(metric: str, q: QuantizedSubByte, v: QuantizedSubByte, d: int) -> torch.Tensor:
+    # imported here: the kernel module builds on this module's exact products
+    from cosdata_tpu_torch.ops.kernels.subbyte_scan import subbyte_scores
+
+    return subbyte_scores(metric, q, v, d)
+
+
+def dot_subbyte(q: QuantizedSubByte, v: QuantizedSubByte, d: int) -> torch.Tensor:
+    """Dequantized (bucket-centre) dot product, (Q, N), through K2."""
+    return _subbyte_scores("dot", q, v, d)
+
+
+def cosine_subbyte(q: QuantizedSubByte, v: QuantizedSubByte, d: int) -> torch.Tensor:
+    return _subbyte_scores("cosine", q, v, d)
+
+
+def dot_float(q: QuantizedFloat, v: QuantizedFloat) -> torch.Tensor:
+    """Full-f32 product (f16 upcast), TF32 off: the exact tier."""
+    if q.data.device.type == "cuda":
+        _no_tf32()
+    return torch.mm(q.data.to(torch.float32), v.data.to(torch.float32).T)
+
+
+def cosine_float(q: QuantizedFloat, v: QuantizedFloat) -> torch.Tensor:
+    return safe_div(dot_float(q, v), q.mags[:, None] * v.mags[None, :])
+
+
+def score(metric: str, kind: str, q, v, d: int) -> torch.Tensor:
     """Uniform (Q, N) similarity scores, higher is better (euclidean negated).
 
-    Only u8 storage is ported; sub-byte and float kinds wait for their slice.
+    ``kind`` in {"u8", "subbyte", "float"}.
     """
-    if kind != "u8":
-        raise NotImplementedError(
-            f"{kind!r} storage is not ported yet (ROADMAP queue 1: sub-byte, f16 and f32 kinds)"
-        )
-    if metric == "cosine":
-        return cosine_u8(q, v)
-    if metric == "dot":
-        return dot_u8(q, v)
+    if metric in ("cosine", "dot"):
+        if kind == "u8":
+            return cosine_u8(q, v) if metric == "cosine" else dot_u8(q, v)
+        if kind == "subbyte":
+            return _subbyte_scores(metric, q, v, d)
+        if kind == "float":
+            return cosine_float(q, v) if metric == "cosine" else dot_float(q, v)
+        raise ValueError(f"unknown storage kind {kind!r}")
     if metric == "euclidean":
-        return -euclidean_u8(q, v)
+        if kind == "u8":
+            return -euclidean_u8(q, v)
+        if kind == "subbyte":
+            raise ValueError("euclidean unsupported for sub-byte storage")
+        raise NotImplementedError(
+            f"euclidean scoring of {kind!r} storage is not ported yet "
+            "(ROADMAP queue 1: euclidean and hamming stage 1)"
+        )
     if metric == "hamming":
-        raise NotImplementedError("hamming scoring is not ported yet (ROADMAP queue 1)")
+        raise NotImplementedError(
+            "hamming scoring is not ported yet (ROADMAP queue 1: euclidean and hamming stage 1)"
+        )
     raise ValueError(f"unknown metric {metric!r}")

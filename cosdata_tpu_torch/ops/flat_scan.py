@@ -1,7 +1,18 @@
-"""Exact-scan search over a u8 store (port of cosdata_tpu/ops/flat_scan.py,
-the codes engine with ``select="bins"``).
+"""Exact-scan search (port of cosdata_tpu/ops/flat_scan.py).
 
-Five stages:
+Two engines:
+
+- u8 stores take the codes engine with ``select="bins"``
+  (:func:`fused_flat_search_codes`);
+- sub-byte, f16 and f32 stores take the chunked scan with a running top-k
+  (:func:`fused_flat_search`): each chunk of ``chunk`` rows is scored in
+  full (sub-byte code dots by kernel K2), masked, cut to its top-k and
+  merged into a running (B, k_fetch) top-k; an exact f32 rerank against
+  the raw rows follows. The reference's per-chunk
+  ``approx_max_k(recall_target=0.99)`` is an exact ``torch.topk`` here (on
+  XLA:CPU the reference's is exact too).
+
+The codes engine's five stages:
 
 1. the caller quantizes the queries to centered int8 codes;
 2. the u8_bin_max kernel scans the whole store and writes ONE (B, cap/G)
@@ -21,7 +32,8 @@ import torch
 from cosdata_tpu_torch.ops import distance as D
 from cosdata_tpu_torch.ops.kernels.u8_scan import u8_bin_max_from_store
 from cosdata_tpu_torch.ops.quantize import QuantizedU8, quantize_u8
-from cosdata_tpu_torch.ops.storage import cos_or_dot, exact_scores
+from cosdata_tpu_torch.ops.storage import cos_or_dot, exact_scores, quantize_batch
+from cosdata_tpu_torch.ops.storage import rerank as rerank_raw
 from cosdata_tpu_torch.ops.topk import NEG_INF
 
 #: the bins table's size limit (elements); past it the reference falls back
@@ -140,3 +152,64 @@ def exact_rerank_sorted(metric, d_true, d_pad, k, q_re, raw, ids, vals):
     vals_k, ids_k = _topk_take(re, min(k, kf), ids)
     ids_k = torch.where(vals_k > NEG_INF / 2, ids_k, -1)
     return ids_k, vals_k
+
+
+def _slice_store(store, kind: str, start: int, chunk: int):
+    """Rows [start, start + chunk) of a quantized store, as views."""
+    sl = slice(start, start + chunk)
+    if kind == "subbyte":
+        return store._replace(planes=store.planes[:, sl], sums=store.sums[sl], mags=store.mags[sl])
+    if kind == "u8":
+        return store._replace(data=store.data[sl], sums=store.sums[sl], mags=store.mags[sl])
+    return store._replace(data=store.data[sl], mags=store.mags[sl])
+
+
+def flat_scan_topk(metric: str, kind: str, d: int, k: int, chunk: int, q, store, valid: torch.Tensor):
+    """Returns (scores (B, k), ids (B, k)) over the whole store, ids -1 where
+    nothing was found; ``kind`` in {"u8", "subbyte", "float"}, capacity a
+    multiple of ``chunk``, ``valid`` (capacity,) bool."""
+    capacity = valid.shape[0]
+    b = q.mags.shape[0]
+    top_s = torch.full((b, k), NEG_INF, dtype=torch.float32, device=valid.device)
+    top_i = torch.full((b, k), -1, dtype=torch.int64, device=valid.device)
+    for start in range(0, capacity, chunk):
+        scores = D.score(metric, kind, q, _slice_store(store, kind, start, chunk), d)  # (B, chunk)
+        scores = torch.where(valid[None, start : start + chunk], scores, NEG_INF)
+        c_s, c_i = torch.topk(scores, min(k, chunk), dim=1)
+        del scores
+        top_s, pos = torch.topk(torch.cat([top_s, c_s], dim=1), k, dim=1)
+        top_i = torch.gather(torch.cat([top_i, c_i + start], dim=1), 1, pos)
+    top_i = torch.where(top_s > NEG_INF / 2, top_i, -1)
+    return top_s, top_i
+
+
+def fused_flat_search(
+    metric: str,
+    kind: str,
+    d_true: int,
+    d_pad: int,
+    resolution: int,
+    k_fetch: int,
+    k: int,
+    chunk: int,
+    rerank: bool,
+    q_raw: torch.Tensor,  # (B, d_pad) f32
+    lo,
+    hi,
+    store,
+    raw: torch.Tensor | None,  # (cap, d_pad) f32/f16 raw rows when rerank
+    valid: torch.Tensor,  # (cap,) bool
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Quantize the queries, scan in chunks, exact-rerank, take the top-k.
+    Returns (ids (B, k), vals (B, k)); ids are -1 where nothing was found."""
+    q = quantize_batch(q_raw, lo, hi, kind, resolution, d_true)  # "float" queries stay f32
+    vals, ids = flat_scan_topk(metric, kind, d_pad, k_fetch, chunk, q, store, valid)
+    if rerank:
+        re = rerank_raw(metric, q_raw, raw, ids)
+        re = torch.where(vals > NEG_INF / 2, re, NEG_INF)
+        vals, pos = torch.topk(re, k, dim=1)
+        ids = torch.gather(ids, 1, pos)
+    else:
+        vals, ids = vals[:, :k], ids[:, :k]
+    ids = torch.where(vals > NEG_INF / 2, ids, -1)
+    return ids, vals

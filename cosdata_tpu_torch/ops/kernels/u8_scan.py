@@ -3,7 +3,8 @@
 Port of cosdata_tpu/ops/pallas/u8_scan.py. The CUDA kernel lives in
 ``cosdata_tpu_torch/csrc/u8_bin_max.cu``; it is compiled by ``nvcc`` for
 ``sm_90a`` at first use into ``cosdata_tpu_torch/build/`` and loaded with
-ctypes. Beside it sits the plain PyTorch version of the same function.
+ctypes (ops/kernels/nvcc.py). Beside it sits the plain PyTorch version of
+the same function.
 :func:`u8_bin_max` takes the plain version for CPU tensors and launches the
 kernel for CUDA tensors, or raises.
 
@@ -21,23 +22,18 @@ reciprocal 0 plus a -3e38 sink.
 from __future__ import annotations
 
 import ctypes
-import functools
-import os
-import shutil
-import subprocess
-from pathlib import Path
 from typing import NamedTuple
 
 import torch
 
 from cosdata_tpu_torch.ops.distance import code_matmul
+from cosdata_tpu_torch.ops.kernels.nvcc import CudaLibrary
 from cosdata_tpu_torch.ops.quantize import QuantizedU8
 
-_PKG = Path(__file__).resolve().parents[2]
-SOURCE = _PKG / "csrc" / "u8_bin_max.cu"
-BUILD_DIR = _PKG / "build"
-LIBRARY = BUILD_DIR / "libu8_bin_max.so"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17", "-Xptxas", "-v"]
+LIBRARY = CudaLibrary(
+    "u8_bin_max",
+    [ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p],
+)
 #: the kernel's bin width (one warp) and its Dp granularity
 KERNEL_GROUP = 32
 KERNEL_DP_MULTIPLE = 128
@@ -111,36 +107,6 @@ def u8_bin_max_plain(metric: str, group: int, t: BinMaxTerms) -> torch.Tensor:
     return out
 
 
-def build() -> str:
-    """Compile the kernel from the checkout's source; returns nvcc's output."""
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(nvcc):
-        raise RuntimeError("nvcc not found: the u8_bin_max kernel needs the CUDA toolkit")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = LIBRARY.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp), str(SOURCE)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stdout}{res.stderr}")
-    os.replace(tmp, LIBRARY)
-    return res.stdout + res.stderr
-
-
-@functools.cache
-def _library() -> ctypes.CDLL:
-    if not LIBRARY.exists() or LIBRARY.stat().st_mtime < SOURCE.stat().st_mtime:
-        build()
-    lib = ctypes.CDLL(str(LIBRARY))
-    lib.u8_bin_max_launch.argtypes = (
-        [ctypes.c_int] + [ctypes.c_void_p] * 9
-        + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
-    )
-    lib.u8_bin_max_launch.restype = ctypes.c_int
-    lib.u8_bin_max_error_string.argtypes = [ctypes.c_int]
-    lib.u8_bin_max_error_string.restype = ctypes.c_char_p
-    return lib
-
-
 def _check_cuda_args(metric: str, group: int, t: BinMaxTerms) -> None:
     if metric not in _METRIC_CODE:
         raise ValueError(f"u8_bin_max kernel takes cosine or dot, not {metric!r}")
@@ -181,17 +147,13 @@ def u8_bin_max(metric: str, group: int, t: BinMaxTerms) -> torch.Tensor:
     out = torch.empty((b, c // group), dtype=torch.float32, device=t.codes.device)
     if out.numel() == 0:
         return out
-    lib = _library()
     with torch.cuda.device(t.codes.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.u8_bin_max_launch(
+        LIBRARY.launch(
             _METRIC_CODE[metric], t.q_codes.data_ptr(), t.q_add.data_ptr(),
             t.q_inv.data_ptr(), t.codes.data_ptr(), t.v_add.data_ptr(),
             t.v_inv.data_ptr(), t.v_sink.data_ptr(), t.a2.data_ptr(), out.data_ptr(),
-            b, c, dp, stream,
+            b, c, dp, torch.cuda.current_stream().cuda_stream,
         )
-    if err:
-        raise RuntimeError(f"u8_bin_max launch failed: {lib.u8_bin_max_error_string(err).decode()}")
     u8_bin_max.launches += 1
     return out
 

@@ -1,9 +1,16 @@
-"""Device-resident u8 vector store (port of cosdata_tpu/ops/storage.py, u8).
+"""Device-resident vector store (port of cosdata_tpu/ops/storage.py).
 
-The store is a handful of preallocated tensors on one device: centered
-int8 codes, int32 code sums, f32 magnitudes, and the raw rows (f32 or f16)
-for the exact rerank. Rows are written in place into the preallocated
-tensors (the reference rebuilds its arrays functionally with
+Four storage kinds, as in the reference:
+
+- ``u8``      — centered int8 codes + row code sums + dequant scale/offset
+- ``subbyte`` — packed bitplanes (resolution 1/2/3; aliases ``binary``,
+  ``quaternary``/``quaternay``, ``octal``) + code sums
+- ``f16``     — float16 rows + f32 magnitudes
+- ``f32``     — float32 rows + f32 magnitudes
+
+The store is a handful of preallocated tensors on one device, plus the raw
+rows (f32 or f16) for the exact rerank. Rows are written in place into
+the preallocated tensors (the reference rebuilds its arrays functionally with
 ``dynamic_update_slice``), so an ingest holds no second copy of the store;
 only growth allocates, by doubling.
 
@@ -34,15 +41,44 @@ def as_rows(x, device) -> torch.Tensor:
     return x[None] if x.ndim == 1 else x
 
 
+#: the REST vocabulary's sub-byte data types (with its "quaternay" spelling)
+SUBBYTE_ALIAS = {"binary": 1, "quaternary": 2, "quaternay": 2, "octal": 3}
+
+
+def quantize_batch(x: torch.Tensor, lo, hi, kind: str, resolution: int, d_true: int):
+    """Quantize lane-padded f32 rows for a store of ``kind``."""
+    if kind == "u8":
+        return Q.quantize_u8(x, lo, hi, d_true)
+    if kind == "subbyte":
+        return Q.quantize_subbyte(x, resolution, d_true)
+    if kind == "f16":
+        return Q.quantize_f16(x)
+    return Q.quantize_f32(x)
+
+
+def _write_rows(store, batch, offset: int) -> None:
+    """Write a quantized batch into the store's tensors at row ``offset``,
+    in place (the reference's functional ``_write_rows``)."""
+    n = batch.mags.shape[0]
+    if isinstance(store, Q.QuantizedSubByte):
+        store.planes[:, offset : offset + n] = batch.planes
+    else:
+        store.data[offset : offset + n] = batch.data
+    if not isinstance(store, Q.QuantizedFloat):
+        store.sums[offset : offset + n] = batch.sums
+    store.mags[offset : offset + n] = batch.mags
+
+
 @dataclass
 class VectorStore:
-    """Growing store of u8-quantized vectors plus raw rows on ``device``."""
+    """Growing store of quantized vectors plus raw rows on ``device``."""
 
     dim: int
     device: str | torch.device
-    kind: str = "u8"
+    kind: str = "u8"  # u8 | subbyte | f16 | f32 (or a sub-byte alias)
     metric: str = "cosine"
-    range: tuple[float, float] = (-1.0, 1.0)
+    resolution: int = 2  # for subbyte
+    range: tuple[float, float] = (-1.0, 1.0)  # for u8
     #: True = raw rows on the device (exact rerank); False = codes only
     keep_raw: bool = True
     #: dtype of the raw rows: "f16" halves their memory at ~1e-3 relative
@@ -53,15 +89,15 @@ class VectorStore:
     n: int = field(default=0, init=False)
     capacity: int = field(default=0, init=False)
     dim_pad: int = field(default=0, init=False)
-    arrays: Q.QuantizedU8 = field(default=None, init=False)
+    arrays: Q.QuantizedU8 | Q.QuantizedSubByte | Q.QuantizedFloat = field(default=None, init=False)
     raw: torch.Tensor | None = field(default=None, init=False)
 
     def __post_init__(self):
-        if self.kind != "u8":
-            raise NotImplementedError(
-                f"{self.kind!r} storage is not ported yet "
-                "(ROADMAP queue 1: sub-byte with K2, then f16 and f32)"
-            )
+        if self.kind in SUBBYTE_ALIAS:
+            self.resolution = SUBBYTE_ALIAS[self.kind]
+            self.kind = "subbyte"
+        if self.kind not in ("u8", "subbyte", "f16", "f32"):
+            raise ValueError(f"unknown storage kind {self.kind!r}")
         if self.keep_raw not in (True, False):
             raise NotImplementedError(
                 f"keep_raw={self.keep_raw!r}: host and disk raw tiers are not ported yet "
@@ -76,6 +112,11 @@ class VectorStore:
                 (self.capacity, self.dim_pad), dtype=self._raw_torch_dtype(), device=self.device
             )
 
+    @property
+    def score_kind(self) -> str:
+        """The kind ``distance.score`` dispatches on: f16/f32 are "float"."""
+        return "float" if self.kind in ("f16", "f32") else self.kind
+
     def _raw_torch_dtype(self) -> torch.dtype:
         return torch.float16 if self.raw_dtype == "f16" else torch.float32
 
@@ -86,10 +127,26 @@ class VectorStore:
             total += self.raw.numel() * self.raw.element_size()
         return total
 
-    def _empty(self, cap: int) -> Q.QuantizedU8:
+    def _empty(self, cap: int):
         d = self.dim_pad
-        lo, hi = self.range
         dev = self.device
+        if self.kind == "subbyte":
+            step = 2.0 / (1 << self.resolution)
+            return Q.QuantizedSubByte(
+                torch.zeros((self.resolution, cap, d // 32), dtype=torch.int32, device=dev),
+                torch.zeros((cap,), dtype=torch.int32, device=dev),
+                torch.zeros((cap,), dtype=torch.float32, device=dev),
+                torch.tensor(step, dtype=torch.float32, device=dev),
+                torch.tensor(step / 2.0 - 1.0, dtype=torch.float32, device=dev),
+                torch.tensor(float(self.dim), dtype=torch.float32, device=dev),
+            )
+        if self.kind in ("f16", "f32"):
+            dt = torch.float16 if self.kind == "f16" else torch.float32
+            return Q.QuantizedFloat(
+                torch.zeros((cap, d), dtype=dt, device=dev),
+                torch.zeros((cap,), dtype=torch.float32, device=dev),
+            )
+        lo, hi = self.range
         return Q.QuantizedU8(
             torch.zeros((cap, d), dtype=torch.int8, device=dev),
             torch.full((cap,), -d * 128, dtype=torch.int32, device=dev),  # all-zero-code rows
@@ -106,9 +163,7 @@ class VectorStore:
         cap = _round_up(cap, _LANE)
         old, n_old = self.arrays, self.capacity
         new = self._empty(cap)
-        new.data[:n_old] = old.data
-        new.sums[:n_old] = old.sums
-        new.mags[:n_old] = old.mags
+        _write_rows(new, old, 0)
         self.arrays = new
         if self.raw is not None:
             raw = torch.zeros((cap, self.dim_pad), dtype=self.raw.dtype, device=self.device)
@@ -125,15 +180,15 @@ class VectorStore:
         if x.shape[1] != self.dim:
             raise ValueError(f"expected dim {self.dim}, got {x.shape[1]}")
         if self.dim_pad != self.dim:
-            # quantize_u8 zeroes padded-lane codes and excludes them from
-            # sums/magnitudes, so the pad value is irrelevant
+            # padded lanes are zeros: the quantizers give them code 0 and
+            # leave them out of sums/magnitudes, and float rows stay exact
             x = torch.nn.functional.pad(x, (0, self.dim_pad - self.dim))
         if ship_f16:
             x = x.to(torch.float16).to(torch.float32)
         return x
 
-    def quantize(self, x: torch.Tensor) -> Q.QuantizedU8:
-        return Q.quantize_u8(x, self.range[0], self.range[1], self.dim)
+    def quantize(self, x: torch.Tensor):
+        return quantize_batch(x, self.range[0], self.range[1], self.kind, self.resolution, self.dim)
 
     #: rows quantized per step: bounds the f32 temporaries of an ingest
     ADD_CHUNK = 131072
@@ -147,20 +202,21 @@ class VectorStore:
         start = self.n
         for s in range(0, b, self.ADD_CHUNK):
             piece = self.pad_dims(x[s : s + self.ADD_CHUNK])
-            qb = self.quantize(piece)
-            rows = slice(self.n, self.n + piece.shape[0])
-            self.arrays.data[rows] = qb.data
-            self.arrays.sums[rows] = qb.sums
-            self.arrays.mags[rows] = qb.mags
+            _write_rows(self.arrays, self.quantize(piece), self.n)
             if self.raw is not None:
-                self.raw[rows] = piece.to(self.raw.dtype)
+                self.raw[self.n : self.n + piece.shape[0]] = piece.to(self.raw.dtype)
             self.n += piece.shape[0]
         return np.arange(start, self.n, dtype=np.int64)
 
     # -- queries ------------------------------------------------------------
 
-    def quantize_queries(self, q) -> Q.QuantizedU8:
+    def quantize_queries(self, q):
         return self.quantize(self.pad_dims(q))
+
+    def ship_queries(self, x) -> torch.Tensor:
+        """The exact f32 query rows, padded (the reference's choice on a fast
+        link; the port has no wire)."""
+        return self.pad_dims(x)
 
     def ship_query_codes(self, x) -> Q.QuantizedU8:
         """Query codes quantized from the exact f32 queries, carrying the
@@ -168,9 +224,9 @@ class VectorStore:
         the host and takes ``a`` from the store, mags from the f32 scale)."""
         return self.quantize_queries(x)._replace(a=self.arrays.a)
 
-    def scores_all(self, q_quant: Q.QuantizedU8) -> torch.Tensor:
+    def scores_all(self, q_quant) -> torch.Tensor:
         """(Q, capacity) similarity scores; rows >= n are garbage (mask them)."""
-        return D.score(self.metric, self.kind, q_quant, self.arrays, self.dim_pad)
+        return D.score(self.metric, self.score_kind, q_quant, self.arrays, self.dim_pad)
 
     def valid_mask(self) -> torch.Tensor:
         return torch.arange(self.capacity, device=self.device) < self.n
@@ -183,13 +239,23 @@ class VectorStore:
 
     @classmethod
     def from_arrays(cls, arrays: dict, *, metric: str, device) -> VectorStore:
-        """A store holding the reference store's state, given as numpy arrays
-        (``data``, ``sums``, ``mags``, ``a``, ``b``, ``dtrue``, ``raw``, ``n``,
-        ``capacity``, ``dim``, ``range``): the database's "weights"."""
+        """A store holding the reference store's state, given as numpy arrays:
+        the database's "weights". Keys: ``n``, ``capacity``, ``dim``, ``raw``
+        (optional), ``range`` (u8), and the quantized arrays of one kind: u8
+        ``data`` (int8) / ``sums`` / ``mags`` / ``a`` / ``b`` / ``dtrue``;
+        sub-byte ``planes`` (uint32) / ``sums`` / ``mags`` / ``a`` / ``b`` /
+        ``dtrue``; float ``data`` (f16 or f32) / ``mags``."""
         raw = arrays.get("raw")
+        if "planes" in arrays:
+            kind, resolution = "subbyte", int(arrays["planes"].shape[0])
+        else:
+            kind = {np.dtype(np.float16): "f16", np.dtype(np.float32): "f32"}.get(
+                np.asarray(arrays["data"]).dtype, "u8"
+            )
+            resolution = 2
         store = cls(
-            dim=int(arrays["dim"]), device=device, metric=metric,
-            range=tuple(float(v) for v in arrays["range"]),
+            dim=int(arrays["dim"]), device=device, kind=kind, metric=metric, resolution=resolution,
+            range=tuple(float(v) for v in arrays.get("range", (-1.0, 1.0))),
             keep_raw=raw is not None,
             raw_dtype="f16" if raw is not None and raw.dtype == np.float16 else "f32",
             initial_capacity=int(arrays["capacity"]),
@@ -200,10 +266,21 @@ class VectorStore:
         def t(name, dtype):  # a copy: the store writes into its tensors in place
             return torch.tensor(np.array(arrays[name]), dtype=dtype, device=store.device)
 
-        store.arrays = Q.QuantizedU8(
-            t("data", torch.int8), t("sums", torch.int32), t("mags", torch.float32),
-            t("a", torch.float32), t("b", torch.float32), t("dtrue", torch.float32),
-        )
+        f32 = torch.float32
+        if kind == "subbyte":
+            # int32 tensors holding the uint32 words' bits
+            planes = np.array(arrays["planes"], dtype=np.uint32).view(np.int32)
+            store.arrays = Q.QuantizedSubByte(
+                torch.from_numpy(planes).to(store.device), t("sums", torch.int32),
+                t("mags", f32), t("a", f32), t("b", f32), t("dtrue", f32),
+            )
+        elif kind == "u8":
+            store.arrays = Q.QuantizedU8(
+                t("data", torch.int8), t("sums", torch.int32), t("mags", f32),
+                t("a", f32), t("b", f32), t("dtrue", f32),
+            )
+        else:
+            store.arrays = Q.QuantizedFloat(t("data", store.arrays.data.dtype), t("mags", f32))
         if raw is not None:
             store.raw = t("raw", store.raw.dtype)
         store.n = int(arrays["n"])

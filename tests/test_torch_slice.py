@@ -1,12 +1,14 @@
-"""The port's dense u8 exact-scan slice end to end on the CPU, against the
+"""The port's dense exact-scan slices end to end on the CPU, against the
 reference: DenseIndexHandle (sample -> range tune -> u8 store -> add_batch
--> search) and FlatIndex.search(rerank=True) on the same clustered data.
+-> search) and FlatIndex.search(rerank=True) on the same clustered data,
+then both entry points over quaternary (2-bit) and f32 stores.
 
 The reference side stays off its graph build (slow to compile on XLA:CPU):
 its handle is built with the tuned range as an explicit scalar u8
 quantization and set scan-only before the first add, and its engine is
-pinned to the codes engine with bins selection, the port's engine.
-Tolerances as in test_torch_flat_scan.py."""
+pinned to the codes engine with bins selection, the port's engine, and
+its wire probe pinned fast, so it ships exact f32 queries as the port
+does. Tolerances as in test_torch_flat_scan.py."""
 
 import subprocess
 import sys
@@ -19,6 +21,7 @@ import torch
 from cosdata_tpu.core import collection as JC
 from cosdata_tpu.indexes import flat as JFlat
 from cosdata_tpu.indexes import hnsw as JH
+from cosdata_tpu.ops import storage as JS
 from cosdata_tpu_torch.core import collection as TC
 from cosdata_tpu_torch.indexes import flat as TFlat
 from cosdata_tpu_torch.indexes import hnsw as TH
@@ -53,6 +56,7 @@ def gen_clustered(n, d, nq, seed=0):
 def small_scan(monkeypatch):
     monkeypatch.setenv("COSDATA_FLAT_ENGINE", "codes")
     monkeypatch.setenv("COSDATA_SCAN_SELECT", "bins")
+    monkeypatch.setattr(JS, "_WIRE_BW_MBPS", 1e9)
     for cls in (JH.HNSWIndex, TH.HNSWIndex):
         monkeypatch.setattr(cls, "SCAN_CHUNK", SCAN)
     for cls in (JFlat.FlatIndex, TFlat.FlatIndex):
@@ -166,6 +170,63 @@ def test_flat_index_rerank_matches_reference(data):
     np.testing.assert_array_equal(loaded.store.arrays.data.numpy(), port.store.arrays.data.numpy())
 
 
+@pytest.fixture(scope="module", params=["quaternary", "f32"])
+def kind_handles(request, data):
+    """Port and reference handles over one explicit data type."""
+    x, _, _ = data
+    quant = {"type": "scalar", "data_type": request.param}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(JS, "_WIRE_BW_MBPS", 1e9)  # the reference ingests exact f32 rows
+        mp.setattr(JH.HNSWIndex, "SCAN_CHUNK", SCAN)
+        mp.setattr(TH.HNSWIndex, "SCAN_CHUNK", SCAN)
+        port = TC.DenseIndexHandle(DIM, "cpu", quantization=quant)
+        ref = JC.DenseIndexHandle(DIM, quantization=quant)
+        ref.index.scan_only = True
+        for s in range(0, N, BATCH):
+            port.add_batch(list(range(s, s + BATCH)), x[s : s + BATCH])
+            ref.add_batch(list(range(s, s + BATCH)), x[s : s + BATCH])
+    return request.param, port, ref
+
+
+def test_kind_handle_search_matches_reference(data, kind_handles):
+    _, q, truth = data
+    dt, port, ref = kind_handles
+    store = port.index.store
+    assert (store.kind, store.resolution) == (ref.index.store.kind, ref.index.store.resolution)
+    assert port.index._rerank_factor() == ref.index._rerank_factor() == (20 if dt == "quaternary" else 5)
+    _compare(port.search(q, K), ref.search(q, K), truth)
+    mask = np.zeros(N, bool)
+    mask[::7] = True
+    t_ids, t_vals = port.search(q, K, row_mask=mask)
+    assert mask[t_ids].all() and (t_ids >= 0).all()
+    masked_truth = np.flatnonzero(mask)[np.argsort(-(q @ data[0][mask].T), axis=1)[:, :K]]
+    _compare((t_ids, t_vals), ref.search(q, K, row_mask=mask), masked_truth)
+
+
+@pytest.mark.parametrize("kind", ["quaternary", "f32"])
+def test_flat_index_kind_matches_reference(data, kind):
+    x, q, truth = data
+    factor = 20 if kind == "quaternary" else 5
+    ref = JFlat.FlatIndex(DIM, kind=kind)
+    port = TFlat.FlatIndex(DIM, "cpu", kind=kind)
+    for s in range(0, N, BATCH):
+        ref.add(x[s : s + BATCH])
+        port.add(x[s : s + BATCH])
+    j = ref.search(q, K, rerank=True, rerank_factor=factor)
+    _compare(port.search(q, K, rerank=True, rerank_factor=factor), j, truth)
+    # the reference's store loaded into the port answers the same
+    arrays = {name: np.asarray(v) for name, v in ref.store._arrays._asdict().items()}
+    arrays.update(
+        raw=np.asarray(ref.store._raw), n=ref.store.n, capacity=ref.store.capacity, dim=ref.store.dim
+    )
+    loaded = TFlat.FlatIndex.from_store(VectorStore.from_arrays(arrays, metric="cosine", device="cpu"))
+    assert (loaded.store.kind, loaded.store.resolution) == (port.store.kind, port.store.resolution)
+    _compare(loaded.search(q, K, rerank=True, rerank_factor=factor), j, truth)
+    # the port quantized the rows as the reference did: planes or data bit for bit
+    np.testing.assert_array_equal(loaded.store.arrays[0].numpy(), port.store.arrays[0].numpy())
+    np.testing.assert_allclose(loaded.store.arrays.mags.numpy(), port.store.arrays.mags.numpy(), rtol=1e-6)
+
+
 def test_semantics(data):
     x, q, _ = data
     h = _port_handle(x)
@@ -208,9 +269,10 @@ def test_routes_not_ported_raise(data, handles):
     for kwargs in (
         {"distance_metric": "euclidean"},
         {"distance_metric": "hamming"},
-        {"quantization": {"type": "scalar", "data_type": "f16"}},
-        {"quantization": {"type": "scalar", "data_type": "binary"}},
+        {"distance_metric": "euclidean", "quantization": {"type": "scalar", "data_type": "f32"}},
+        {"distance_metric": "hamming", "quantization": {"type": "scalar", "data_type": "binary"}},
         {"raw_storage": "host"},
+        {"raw_storage": "disk"},
         {"shards": 2},
     ):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -232,4 +294,4 @@ def test_port_imports_neither_jax_nor_reference():
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 13
+    assert int(out.stdout.strip()) >= 16

@@ -1,5 +1,5 @@
 """Chip smoke of the PyTorch/CUDA port: dense exact-scan search at 1M x 768,
-u8 and sub-byte.
+u8 and sub-byte, then the serving stack (REST, restart, gRPC) over it.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -14,22 +14,38 @@ against an exact f32 oracle and K1's launch count; 4 u8 search semantics;
 same corpus through a quaternary DenseIndexHandle at 1M rows, recall@10 and
 K2's launch count; 7 quaternary search semantics; 8 a quaternary FlatIndex
 at 262,144 rows (the reference's bench row) at b1024 and b4096, then
-binary, octal and f16 at b1024. Any failure exits non-zero. The last line
-is one JSON object naming the device.
+binary, octal and f16 at b1024; 9 the REST server (``AppContext`` on the
+card, aiohttp on a local port): a 65,536 x 768 collection written through
+one explicit transaction, searched in batches (recall@10 against an exact
+oracle), filtered, read back by id and streamed a delete; 10 a restart of
+the context on the same data dir (snapshot + WAL replay) answering the same
+queries identically; 11 served throughput: the phase-3 u8 and the phase-6
+quaternary 1M handles mounted into collections and searched over HTTP in
+128-query requests from 8 threads; 12 the gRPC server over the u8
+collection, whose FindSimilarVectors must return REST's ids. K1 and K2
+launch counts are read around each path. Any failure exits non-zero. The
+last line is one JSON object naming the device.
 """
 
 from __future__ import annotations
 
+import asyncio
 import concurrent.futures
+import http.client
 import importlib.util
 import json
+import socket
 import statistics
 import subprocess
+import tempfile
+import threading
 import time
 
 import numpy as np
 import torch
 
+from cosdata_tpu_torch.config import load_config
+from cosdata_tpu_torch.core.app_context import AppContext
 from cosdata_tpu_torch.core.collection import DenseIndexHandle, tune_dense_range
 from cosdata_tpu_torch.indexes.flat import FlatIndex
 from cosdata_tpu_torch.ops.kernels import subbyte_scan, u8_scan
@@ -42,6 +58,10 @@ N_SUB = 262_144
 ADD_BATCH = 131072
 RTOL, ATOL = 2e-5, 1e-5
 MIN_RECALL = 0.99
+#: the REST phases: collection rows (one scan chunk, so the capacity takes
+#: the K1 engine), rows per upsert request, queries and queries per request
+N_REST, UPSERT_ROWS, NQ_REST, QUERY_ROWS, WORKERS = 65_536, 512, 1024, 128, 8
+ADMIN_KEY = "chip-smoke"
 
 
 def fail(msg: str) -> None:
@@ -172,8 +192,9 @@ def reset_counts() -> None:
     subbyte_scan.subbyte_code_scores.launches = 0
 
 
-def main_path(x, q, truth, dev, card: str) -> int:
-    """Phases 3 and 4; returns K1's launches during the u8 path."""
+def main_path(x, q, truth, dev, card: str) -> tuple[int, DenseIndexHandle]:
+    """Phases 3 and 4; returns K1's launches during the u8 path and the
+    handle, which phase 11 serves."""
     t0 = time.perf_counter()
     handle = DenseIndexHandle(DIM, dev)  # quantization "auto"
     for s in range(0, N, ADD_BATCH):
@@ -218,15 +239,16 @@ def main_path(x, q, truth, dev, card: str) -> int:
     rows = np.asarray([handle.row_of[i] for i in ids[ids >= 0]])
     if (ids < 0).any() or not mask[rows].all():
         fail("masked search returned rows outside the mask")
-    handle.flat_serve_threshold = handle.index.n - 1
+    serve_threshold, handle.flat_serve_threshold = handle.flat_serve_threshold, handle.index.n - 1
     try:
         handle.search(q[:8], 10)
     except NotImplementedError as err:
         print(f"above flat_serve_threshold: NotImplementedError ({err})")
     else:
         fail("a search above flat_serve_threshold did not raise NotImplementedError")
+    handle.flat_serve_threshold = serve_threshold
     print("self-query, delete, mask: ok")
-    return launches
+    return launches, handle
 
 
 def k2_check(gen, dev) -> tuple[int, float, float]:
@@ -275,8 +297,9 @@ def flat_index(kind: str, x, dev) -> FlatIndex:
     return flat
 
 
-def subbyte_path(x, q, truth, dev, card: str) -> int:
-    """Phases 6 to 8; returns K2's launches during the quaternary runs."""
+def subbyte_path(x, q, truth, dev, card: str) -> tuple[int, DenseIndexHandle]:
+    """Phases 6 to 8; returns K2's launches during the quaternary runs and
+    the quaternary handle, which phase 11 serves."""
     k2 = subbyte_scan.subbyte_code_scores
     t0 = time.perf_counter()
     handle = DenseIndexHandle(DIM, dev, quantization={"type": "scalar", "data_type": "quaternary"})
@@ -311,8 +334,6 @@ def subbyte_path(x, q, truth, dev, card: str) -> int:
     if (ids < 0).any() or not mask[rows].all():
         fail("masked search returned rows outside the mask")
     print("self-query, delete, mask: ok")
-    del handle
-    torch.cuda.empty_cache()
 
     phase(f"8 sub-byte and f16 FlatIndex at {N_SUB} x {DIM}")
     xs = x[:N_SUB]
@@ -341,7 +362,291 @@ def subbyte_path(x, q, truth, dev, card: str) -> int:
             print(f"  store bytes {flat.store.device_nbytes()}; K2 launches {k2.launches}")
         del flat
         torch.cuda.empty_cache()
-    return launches_h + launches_f
+    return launches_h + launches_f, handle
+
+
+class RestServer:
+    """The port's aiohttp app on a free local port, served from a thread's
+    event loop (as bench.py:899-918 serves the reference's)."""
+
+    def __init__(self, ctx: AppContext):
+        from aiohttp import web
+
+        from cosdata_tpu_torch.api.server import make_app
+
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            self.port = s.getsockname()[1]
+        self.loop = asyncio.new_event_loop()
+        self.runner = web.AppRunner(make_app(ctx))
+        started = threading.Event()
+
+        def serve():
+            asyncio.set_event_loop(self.loop)
+            self.loop.run_until_complete(self.runner.setup())
+            self.loop.run_until_complete(web.TCPSite(self.runner, "127.0.0.1", self.port).start())
+            started.set()
+            self.loop.run_forever()
+
+        self.thread = threading.Thread(target=serve, daemon=True)
+        self.thread.start()
+        if not started.wait(60):
+            fail("the REST server did not start")
+
+    def close(self) -> None:
+        asyncio.run_coroutine_threadsafe(self.runner.cleanup(), self.loop).result(120)
+        self.loop.call_soon_threadsafe(self.loop.stop)
+        self.thread.join(60)
+        self.loop.close()
+
+
+class RestClient:
+    """JSON over http.client, one keep-alive connection per thread."""
+
+    def __init__(self, port: int):
+        self.port = port
+        self.headers = {"Content-Type": "application/json"}
+        self._local = threading.local()
+        self._conns: list[http.client.HTTPConnection] = []
+        self._lock = threading.Lock()
+
+    def call(self, method: str, path: str, body=None) -> tuple[int, object]:
+        conn = getattr(self._local, "conn", None)
+        if conn is None:
+            conn = self._local.conn = http.client.HTTPConnection("127.0.0.1", self.port, timeout=900)
+            with self._lock:
+                self._conns.append(conn)
+        conn.request(method, path, body=None if body is None else json.dumps(body), headers=self.headers)
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read() or b"null")
+
+    def ok(self, method: str, path: str, body=None):
+        status, out = self.call(method, path, body)
+        if status not in (200, 201):
+            fail(f"{method} {path}: HTTP {status}: {out}")
+        return out
+
+    def login(self) -> None:
+        out = self.ok("POST", "/auth/create-session", {"username": "admin", "password": ADMIN_KEY})
+        self.headers["Authorization"] = f"Bearer {out['access_token']}"
+
+    def close(self) -> None:
+        with self._lock:
+            for conn in self._conns:
+                conn.close()
+
+
+def rows_of(responses: list, k: int = 10) -> tuple[np.ndarray, np.ndarray]:
+    """(ids, scores) arrays from REST result lists, -1 / -inf padded."""
+    ids = np.full((len(responses), k), -1, np.int64)
+    scores = np.full((len(responses), k), -np.inf, np.float64)
+    for i, res in enumerate(responses):
+        for j, r in enumerate(res[:k]):
+            ids[i, j], scores[i, j] = r["id"], r["score"]
+    return ids, scores
+
+
+def batch_search(client: RestClient, coll: str, qr: np.ndarray, workers: int) -> tuple:
+    """/search/batch-dense over ``qr`` in QUERY_ROWS-query requests from
+    ``workers`` threads; returns (ids, scores, seconds, request latencies)."""
+    path = f"/vectordb/collections/{coll}/search/batch-dense"
+    lat = []
+
+    def one(bq):
+        t0 = time.perf_counter()
+        out = client.ok("POST", path, {"queries": [{"vector": v} for v in bq.tolist()], "top_k": 10})
+        lat.append(time.perf_counter() - t0)
+        return [r["results"] for r in out["responses"]]
+
+    batches = [qr[s : s + QUERY_ROWS] for s in range(0, len(qr), QUERY_ROWS)]
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(workers) as ex:
+        responses = [r for part in ex.map(one, batches) for r in part]
+    dt = time.perf_counter() - t0
+    ids, scores = rows_of(responses)
+    return ids, scores, dt, lat
+
+
+def served_line(name: str, ids: np.ndarray, truth: np.ndarray, dt: float, lat: list, card: str) -> float:
+    if ids.shape != (truth.shape[0], 10) or (ids < 0).any():
+        fail(f"{name}: bad result shape {ids.shape} or missing ids")
+    r = float((ids[:, :, None] == truth[:, None, :]).any(-1).sum()) / truth.size
+    print(f"{name}: recall@10 {r:.4f}; {truth.shape[0]} queries in {len(lat)} requests of {QUERY_ROWS} "
+          f"in {dt:.3f} s = {truth.shape[0] / dt:.1f} qps, {len(lat) / dt:.2f} requests/s; request latency "
+          f"median {statistics.median(lat) * 1e3:.1f} ms, max {max(lat) * 1e3:.1f} ms [{card}]", flush=True)
+    if r < MIN_RECALL:
+        fail(f"{name}: recall@10 {r:.4f} < {MIN_RECALL}")
+    return r
+
+
+def rest_phase(data_dir: str, x_rest: np.ndarray, q_rest: np.ndarray, truth, dev, card: str) -> dict:
+    """Phase 9: ingest, search, filter, read back and delete over HTTP;
+    returns the sequential answers phase 10 must repeat and K1's launches."""
+    ctx = AppContext(load_config(data_path=data_dir), admin_key=ADMIN_KEY, device=dev)
+    server = RestServer(ctx)
+    client = RestClient(server.port)
+    client.login()
+    c = "/vectordb/collections/rest"
+    client.ok("POST", "/vectordb/collections", {
+        "name": "rest", "dense_vector": {"enabled": True, "dimension": DIM},
+        "metadata_schema": {"fields": [{"name": "half", "values": ["a", "b"]}], "supported_conditions": []},
+    })
+    client.ok("POST", c + "/indexes/dense", {"name": "rest_dense", "distance_metric_type": "cosine",
+                                             "quantization": {"type": "auto"}})
+    t0 = time.perf_counter()
+    txn = client.ok("POST", c + "/transactions", {})["transaction_id"]
+    rows = x_rest.tolist()
+    for s in range(0, N_REST, UPSERT_ROWS):
+        vectors = []
+        for i in range(s, s + UPSERT_ROWS):
+            v = {"id": i, "dense_values": rows[i]}
+            if i % 2 == 0:  # half the rows carry the field
+                v["metadata"] = {"half": "a" if i % 4 == 0 else "b"}
+            vectors.append(v)
+        client.ok("POST", f"{c}/transactions/{txn}/upsert", {"vectors": vectors})
+    t_upload = time.perf_counter() - t0
+    client.ok("POST", f"{c}/transactions/{txn}/commit", {})
+    while True:
+        st = client.ok("GET", f"{c}/transactions/{txn}/status")
+        if st["status"] == "complete":
+            break
+        if time.perf_counter() - t0 > 600:
+            fail(f"the transaction did not complete: {st}")
+        time.sleep(0.2)
+    t_ingest = time.perf_counter() - t0
+    if st["records_upserted"] != N_REST:
+        fail(f"transaction status {st}")
+    coll = ctx.get_collection("rest")
+    print(f"REST ingest of {N_REST} x {DIM} in {N_REST // UPSERT_ROWS} requests: upload {t_upload:.1f} s, "
+          f"commit to complete {t_ingest - t_upload:.1f} s, total {t_ingest:.1f} s; range {coll.dense.range}, "
+          f"capacity {coll.dense.index.cap} [{card}]", flush=True)
+
+    reset_counts()
+    batch_search(client, "rest", q_rest[:QUERY_ROWS], WORKERS)  # first search of the collection
+    ids, _, dt, lat = batch_search(client, "rest", q_rest, WORKERS)
+    served_line(f"REST /search/batch-dense {N_REST} rows", ids, truth, dt, lat, card)
+
+    flt = {"Is": {"field_name": "half", "field_value": "a", "operator": "Equal"}}
+    res = client.ok("POST", c + "/search/dense", {"query_vector": q_rest[0].tolist(), "top_k": 10,
+                                                  "filter": flt})["results"]
+    if len(res) != 10 or any(r["id"] % 4 for r in res):
+        fail(f"filtered search returned ids without the filter value: {[r['id'] for r in res]}")
+    probe = N_REST // 2 + 2  # an even row of the field's value "b"
+    rec = client.ok("GET", f"{c}/vectors/{probe}")
+    err = float(np.abs(np.asarray(rec["dense_values"], np.float64) - x_rest[probe]).max())
+    if rec["metadata"] != {"half": "b"} or err > 1e-6:
+        fail(f"GET /vectors/{probe}: metadata {rec['metadata']}, max value error {err}")
+    victim = int(ids[0, 0])
+    client.ok("DELETE", f"{c}/streaming/vectors/{victim}")
+    res = client.ok("POST", c + "/search/dense", {"query_vector": x_rest[victim].tolist(), "top_k": 10})["results"]
+    if victim in [r["id"] for r in res] or len(res) != 10:
+        fail(f"streamed delete of {victim}: it came back as the query for itself")
+    print(f"filtered search: ok; GET /vectors/{probe}: max value error {err:.3g}; "
+          f"streamed delete of {victim}: ok", flush=True)
+    seq = batch_search(client, "rest", q_rest, 1)
+    launches = u8_scan.u8_bin_max.launches
+    print(f"u8_bin_max launches in phase 9: {launches}", flush=True)
+    client.close()
+    server.close()
+    ctx.close()
+    return {"launches": launches, "ids": seq[0], "scores": seq[1], "victim": victim}
+
+
+def restart_phase(data_dir: str, q_rest: np.ndarray, before: dict, dev, card: str) -> int:
+    """Phase 10: a new context on the same data dir answers as before."""
+    t0 = time.perf_counter()
+    ctx = AppContext(load_config(data_path=data_dir), admin_key=ADMIN_KEY, device=dev)
+    print(f"restart: snapshot load + WAL replay in {time.perf_counter() - t0:.1f} s", flush=True)
+    server = RestServer(ctx)
+    client = RestClient(server.port)
+    client.login()
+    reset_counts()
+    ids, scores, dt, lat = batch_search(client, "rest", q_rest, 1)
+    launches = u8_scan.u8_bin_max.launches
+    same_ids = bool((ids == before["ids"]).all())
+    same_scores = bool((scores == before["scores"]).all())
+    status, _ = client.call("GET", f"/vectordb/collections/rest/vectors/{before['victim']}")
+    print(f"after restart: ids identical {same_ids}, scores identical {same_scores}; deleted "
+          f"{before['victim']} answers HTTP {status}; {dt:.3f} s; u8_bin_max launches {launches} [{card}]",
+          flush=True)
+    client.close()
+    server.close()
+    ctx.close()
+    if not (same_ids and same_scores):
+        fail("the restarted context answered differently")
+    if status != 404:
+        fail(f"the deleted vector came back after the restart (HTTP {status})")
+    return launches
+
+
+def mount(ctx: AppContext, name: str, handle: DenseIndexHandle) -> None:
+    """Serve a built 1M handle from a new collection (bench.py:892-897)."""
+    coll = ctx.create_collection({"name": name, "dense_vector": {"enabled": True, "dimension": DIM}})
+    coll.dense = handle
+    coll.raw = {i: {"id": i} for i in handle.row_of}
+
+
+def served_phase(ctx: AppContext, client: RestClient, u8_handle, q4_handle, q, truth, card: str) -> dict:
+    """Phase 11: 1M-row u8 and quaternary handles served over HTTP."""
+    mount(ctx, "served_u8", u8_handle)
+    mount(ctx, "served_q4", q4_handle)
+    qr = np.round(q.cpu().numpy().astype(np.float64), 6)
+    reset_counts()
+    batch_search(client, "served_u8", qr[:QUERY_ROWS], WORKERS)  # first search of the collection
+    ids, _, dt, lat = batch_search(client, "served_u8", qr, WORKERS)
+    k1 = u8_scan.u8_bin_max.launches
+    served_line(f"served u8 {N} rows, {WORKERS} workers", ids, truth.cpu().numpy(), dt, lat, card)
+    print(f"u8_bin_max launches in phase 11: {k1}", flush=True)
+    reset_counts()
+    sub = qr[: 8 * QUERY_ROWS]
+    ids4, _, dt4, lat4 = batch_search(client, "served_q4", sub, WORKERS)
+    k2 = subbyte_scan.subbyte_code_scores.launches
+    served_line(f"served quaternary {N} rows, {WORKERS} workers", ids4, truth[: len(sub)].cpu().numpy(),
+                dt4, lat4, card)
+    print(f"subbyte_code_scores launches in phase 11: {k2}", flush=True)
+    return {"k1": k1, "k2": k2, "ids": ids, "qr": qr}
+
+
+def grpc_phase(ctx: AppContext, served: dict, card: str) -> int:
+    """Phase 12: FindSimilarVectors on the u8 collection returns REST's ids."""
+    import grpc
+
+    from cosdata_tpu_torch.grpc_api import vector_service_pb2 as pb
+    from cosdata_tpu_torch.grpc_api.server import build_server
+
+    server = build_server(ctx, address="127.0.0.1:0")
+    port = server.add_insecure_port("127.0.0.1:0")
+    server.start()
+    channel = grpc.insecure_channel(f"127.0.0.1:{port}")
+    try:
+        def call(method, service, req, resp_cls, md=()):
+            fn = channel.unary_unary(f"/vector_service.{service}/{method}",
+                                     request_serializer=lambda m: m.SerializeToString(),
+                                     response_deserializer=resp_cls.FromString)
+            return fn(req, metadata=list(md), timeout=300)
+
+        tok = call("CreateSession", "AuthService",
+                   pb.CreateSessionRequest(username="admin", password=ADMIN_KEY), pb.CreateSessionResponse).access_token
+        md = [("authorization", f"Bearer {tok}")]
+        reset_counts()
+        t0 = time.perf_counter()
+        got = []
+        for v in served["qr"][:8]:
+            resp = call("FindSimilarVectors", "VectorsService", pb.FindSimilarVectorsRequest(
+                collection_id="served_u8", dense=pb.FindSimilarDenseVectorsQuery(vector=v.tolist(), top_k=10),
+            ), pb.FindSimilarVectorsResponse, md)
+            got.append([int(m.id) for m in resp.matches])
+        dt = time.perf_counter() - t0
+        launches = u8_scan.u8_bin_max.launches
+    finally:
+        channel.close()
+        server.stop(0)
+    want = served["ids"][:8].tolist()
+    print(f"gRPC FindSimilarVectors x8: ids equal REST's {got == want}; {dt:.3f} s; "
+          f"u8_bin_max launches {launches} [{card}]", flush=True)
+    if got != want:
+        fail(f"gRPC ids differ from REST's: {got} vs {want}")
+    return launches
 
 
 def main() -> None:
@@ -382,7 +687,7 @@ def main() -> None:
     truth = exact_top10(q, x)
     torch.cuda.synchronize()
     print(f"corpus + oracle in {time.perf_counter() - t0:.1f} s")
-    launches = main_path(x, q, truth, dev, card)
+    launches, u8_handle = main_path(x, q, truth, dev, card)
     torch.cuda.empty_cache()
 
     phase("5 K2 against plain")
@@ -391,7 +696,39 @@ def main() -> None:
           f"kernel {k2_ms:.3f} ms, plain {k2_plain_ms:.3f} ms [{card}]")
 
     phase(f"6 quaternary DenseIndexHandle at {N} x {DIM}")
-    k2_launches = subbyte_path(x, q, truth, dev, card)
+    k2_launches, q4_handle = subbyte_path(x, q, truth, dev, card)
+
+    phase(f"9 REST ingest and search at {N_REST} x {DIM}")
+    x_rest = np.round(x[:N_REST].cpu().numpy().astype(np.float64), 6)
+    q_rest = np.round(q[:NQ_REST].cpu().numpy().astype(np.float64), 6)
+    truth_rest = exact_top10(
+        torch.as_tensor(q_rest, dtype=torch.float32, device=dev),
+        torch.as_tensor(x_rest, dtype=torch.float32, device=dev),
+    ).cpu().numpy()
+    with tempfile.TemporaryDirectory(prefix="cosdata_smoke_") as data_dir:
+        rest = rest_phase(data_dir, x_rest, q_rest, truth_rest, dev, card)
+        phase("10 restart on the same data dir")
+        k1_restart = restart_phase(data_dir, q_rest, rest, dev, card)
+    del x_rest
+
+    phase(f"11 served throughput at {N} x {DIM}")
+    with tempfile.TemporaryDirectory(prefix="cosdata_smoke_") as data_dir:
+        ctx = AppContext(load_config(data_path=data_dir), admin_key=ADMIN_KEY, device=dev)
+        server = RestServer(ctx)
+        client = RestClient(server.port)
+        client.login()
+        served = served_phase(ctx, client, u8_handle, q4_handle, q, truth, card)
+        phase("12 gRPC")
+        k1_grpc = grpc_phase(ctx, served, card)
+        client.close()
+        server.close()
+        ctx.close()
+    for name, n_launch in (("9 (K1)", rest["launches"]), ("10 (K1)", k1_restart), ("11 (K1)", served["k1"]),
+                           ("11 (K2)", served["k2"]), ("12 (K1)", k1_grpc)):
+        if n_launch == 0:
+            fail(f"phase {name} never launched its kernel")
+    launches += rest["launches"] + k1_restart + served["k1"] + k1_grpc
+    k2_launches += served["k2"]
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
     print(card)

@@ -1,4 +1,7 @@
-"""PyTorch/CUDA port of cosdata_tpu's dense u8 exact-scan search.
+"""PyTorch/CUDA port of cosdata_tpu: dense exact-scan search (u8, sub-byte,
+f16, f32) and the serving stack above it (collections, transactions, WAL,
+versions, snapshots, the REST and gRPC servers; ``python -m
+cosdata_tpu_torch --device cuda --admin-key KEY``).
 
 Module names mirror ``cosdata_tpu`` so each counterpart is easy to find.
 The package imports torch and numpy only, never jax and never
@@ -6,3 +9,5 @@ The package imports torch and numpy only, never jax and never
 takes an explicit ``device``: CPU tensors take each kernel's plain PyTorch
 version, CUDA tensors take the hand-written kernel or raise.
 """
+
+__version__ = "0.1.0"

@@ -13,6 +13,7 @@ import ctypes
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[2]
@@ -29,6 +30,9 @@ class CudaLibrary:
         self.library = BUILD_DIR / f"lib{name}.so"
         self._argtypes = launch_argtypes
         self._lib: ctypes.CDLL | None = None
+        #: serving threads may reach the first launch together: one builds
+        #: and loads, the others wait (the temp file name is per process)
+        self._load_lock = threading.Lock()
 
     def build(self) -> str:
         """Compile the kernel from the checkout's source; returns nvcc's output."""
@@ -45,17 +49,20 @@ class CudaLibrary:
         return res.stdout + res.stderr
 
     def _load(self) -> ctypes.CDLL:
-        if self._lib is None:
-            if not self.library.exists() or self.library.stat().st_mtime < self.source.stat().st_mtime:
-                self.build()
-            lib = ctypes.CDLL(str(self.library))
-            launch = getattr(lib, f"{self.name}_launch")
-            launch.argtypes = self._argtypes
-            launch.restype = ctypes.c_int
-            err_string = getattr(lib, f"{self.name}_error_string")
-            err_string.argtypes = [ctypes.c_int]
-            err_string.restype = ctypes.c_char_p
-            self._lib = lib
+        if self._lib is not None:
+            return self._lib
+        with self._load_lock:
+            if self._lib is None:
+                if not self.library.exists() or self.library.stat().st_mtime < self.source.stat().st_mtime:
+                    self.build()
+                lib = ctypes.CDLL(str(self.library))
+                launch = getattr(lib, f"{self.name}_launch")
+                launch.argtypes = self._argtypes
+                launch.restype = ctypes.c_int
+                err_string = getattr(lib, f"{self.name}_error_string")
+                err_string.argtypes = [ctypes.c_int]
+                err_string.restype = ctypes.c_char_p
+                self._lib = lib
         return self._lib
 
     def launch(self, *args) -> None:

@@ -27,6 +27,7 @@ import torch
 
 from cosdata_tpu_torch.ops import distance as D
 from cosdata_tpu_torch.ops import quantize as Q
+from cosdata_tpu_torch.store.chunked import DirtyTracker
 
 _LANE = 128
 
@@ -91,6 +92,9 @@ class VectorStore:
     dim_pad: int = field(default=0, init=False)
     arrays: Q.QuantizedU8 | Q.QuantizedSubByte | Q.QuantizedFloat = field(default=None, init=False)
     raw: torch.Tensor | None = field(default=None, init=False)
+    #: row-chunk dirty epochs (one row space for all store arrays), so a
+    #: snapshot rewrites only the chunks that ``add`` touched
+    tracker: DirtyTracker = field(default_factory=DirtyTracker, init=False)
 
     def __post_init__(self):
         if self.kind in SUBBYTE_ALIAS:
@@ -206,6 +210,8 @@ class VectorStore:
             if self.raw is not None:
                 self.raw[self.n : self.n + piece.shape[0]] = piece.to(self.raw.dtype)
             self.n += piece.shape[0]
+        self.tracker.bump()
+        self.tracker.mark_range("rows", start, self.n)
         return np.arange(start, self.n, dtype=np.int64)
 
     # -- queries ------------------------------------------------------------
@@ -230,6 +236,14 @@ class VectorStore:
 
     def valid_mask(self) -> torch.Tensor:
         return torch.arange(self.capacity, device=self.device) < self.n
+
+    def raw_rows(self, rows) -> torch.Tensor:
+        """The raw rows ``rows`` (f32, unpadded) as a tensor on the store's
+        device (the reference returns host arrays)."""
+        if self.raw is None:
+            raise RuntimeError("raw store disabled")
+        rows = torch.as_tensor(np.asarray(rows, np.int64), device=self.device)
+        return self.raw[rows, : self.dim].to(torch.float32)
 
     def rerank_scores(self, q_raw, ids: torch.Tensor) -> torch.Tensor:
         """Exact f32 scores of candidate ids (Q, K) vs raw queries (Q, D)."""

@@ -1,0 +1,389 @@
+"""Versioned snapshot persistence for collections and their dense index.
+
+Port of ``cosdata_tpu/store/snapshots.py``: the id maps (``maps.msgpack`` +
+``maps.log``, copied) and the dense part, in torch. A checkpoint is an
+atomic .npz + msgpack snapshot plus chunked row arrays, written at flush
+points (txn indexing / epoch close); crash recovery between snapshots is
+WAL replay.
+
+The on-disk layout is the reference's, so the two packages read each
+other's snapshots:
+
+- ``dense.msgpack`` (store meta), ``dense.npz`` (``levels``, ``alive``,
+  ``mags``, ``sums``) and the chunked ``data`` (u8 int8 / f16 / f32 rows),
+  ``planes`` (sub-byte, uint32 words) and ``raw`` arrays;
+- the port has no graph, so it writes ``scan_only: true`` and no graph
+  files, which the reference's loader accepts; on load it skips the
+  reference's graph arrays (``adj0``, ``adj0_d``, ``up_adj``, ``up_d``).
+
+Not ported (each raises ``NotImplementedError`` naming its ROADMAP item):
+sharded dense snapshots, codes spilled to the host, and the sparse and
+tf-idf parts (a collection holding those indexes never reaches here).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from pathlib import Path
+
+import msgpack
+import numpy as np
+import torch
+
+from cosdata_tpu_torch.ops.storage import VectorStore
+from cosdata_tpu_torch.store.chunked import adopt_tracker, load_chunked, save_chunked
+
+#: the reference's graph arrays; the port neither reads nor writes them
+_GRAPH_ARRAYS = ("adj0", "adj0_d", "up_adj", "up_d")
+#: the REST data type of each sub-byte resolution
+_SUBBYTE_NAME = {1: "binary", 2: "quaternary", 3: "octal"}
+#: numpy dtype of each row array's tensor dtype
+_NP_DTYPE = {torch.int8: np.int8, torch.float16: np.float16, torch.float32: np.float32}
+
+
+def _fsync_dir(path: Path) -> None:
+    """Make a rename durable: the dirent must hit disk too."""
+    dfd = os.open(path, os.O_RDONLY)
+    try:
+        os.fsync(dfd)
+    finally:
+        os.close(dfd)
+
+
+def _atomic_write(path: Path, data: bytes):
+    tmp = path.with_suffix(path.suffix + ".tmp")
+    with open(tmp, "wb") as f:
+        f.write(data)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
+    _fsync_dir(path.parent)
+
+
+def _save_npz(path: Path, arrays: dict):
+    tmp = path.with_suffix(".tmp.npz")
+    np.savez(tmp, **{k: np.asarray(v) for k, v in arrays.items()})
+    # fsync BEFORE the rename: a power loss must not leave a durable
+    # msgpack pointing at a torn npz (np.savez does not sync)
+    with open(tmp, "rb+") as f:
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
+    _fsync_dir(path.parent)
+
+
+class _HostChunks:
+    """A device tensor seen by ``save_chunked`` as a numpy array of
+    ``dtype``: each slice it takes is copied to the host on its own, so
+    clean chunks never leave the device."""
+
+    def __init__(self, t: torch.Tensor, dtype):
+        self.t = t
+        self.shape = tuple(t.shape)
+        self.dtype = np.dtype(dtype)
+
+    def __getitem__(self, sl):
+        return self.t[sl].cpu().numpy().view(self.dtype)
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    return t.cpu().numpy()
+
+
+def _dense_rows_state(coll):
+    d = coll.dense
+    if d is None:
+        return None
+    return {
+        "gen": getattr(d, "_gen", 0),
+        "internal_of": list(d.internal_of),
+        "field_rows": {f: list(v) for f, v in d.field_rows.items()},
+    }
+
+
+def _save_maps(coll, snap_dir: Path, archive: bool = False) -> None:
+    """Incremental id-map persistence: a compacted ``maps.msgpack`` base +
+    an append-only ``maps.log`` of per-commit deltas. A commit of a small
+    batch appends O(batch) bytes; the base is rewritten only when the log
+    outgrows it. ``archive=True`` (version-context history dirs) always
+    writes a standalone full base."""
+    base_p = snap_dir / "maps.msgpack"
+    log_p = snap_dir / "maps.log"
+    deltas = getattr(coll, "_map_log", None)
+    d = coll.dense
+    saved = getattr(coll, "_maps_saved", None)
+    can_increment = (
+        not archive
+        and base_p.exists()
+        and deltas is not None
+        and saved is not None
+        and (d is None or saved.get("dense_gen") == getattr(d, "_gen", 0))
+    )
+    if can_increment:
+        frame = {"ops": deltas}
+        new_mark = saved.get("dense_mark", 0)
+        if d is not None:
+            mark = saved.get("dense_mark", 0)
+            new_mark = len(d.internal_of)
+            if new_mark > mark:
+                frame["drows"] = {
+                    "internal_of": list(d.internal_of[mark:]),
+                    "field_rows": {f: list(v[mark:]) for f, v in d.field_rows.items()},
+                }
+        if frame["ops"] or "drows" in frame:
+            with open(log_p, "ab") as f:
+                f.write(msgpack.packb(frame))
+                f.flush()
+                os.fsync(f.fileno())
+        # advance the mark only AFTER the frame is durably appended
+        if d is not None:
+            saved["dense_mark"] = new_mark
+        coll._map_log = []
+        log_sz = log_p.stat().st_size if log_p.exists() else 0
+        if log_sz <= max(base_p.stat().st_size, 1 << 20):
+            return
+    maps = {
+        "etoi": list(coll.etoi.items()),
+        "dtoi": list(coll.dtoi.items()),
+        "raw": list(coll.raw.items()),
+        "next_internal": coll.next_internal,
+        "dense_rows": _dense_rows_state(coll),
+    }
+    _atomic_write(base_p, msgpack.packb(maps))
+    log_p.unlink(missing_ok=True)
+    if not archive:
+        if deltas is not None:
+            coll._map_log = []
+        coll._maps_saved = {
+            "dense_gen": getattr(d, "_gen", 0) if d is not None else None,
+            "dense_mark": len(d.internal_of) if d is not None else 0,
+        }
+
+
+def _save_dense(idx, snap_dir: Path, configured_range: list, num_layers: int) -> None:
+    """Persist the scan-served HNSWIndex (+ its VectorStore) into
+    ``snap_dir`` in the reference's scan-only layout."""
+    vs = idx.store
+    a = vs.arrays
+    st = vs.tracker.view("rows")
+    # write order: chunked arrays and the npz first, the msgpack manifest
+    # last (loaders key on the manifest)
+    if vs.kind == "subbyte":
+        save_chunked(snap_dir, "planes", _HostChunks(a.planes, np.uint32), st, axis=1)
+    else:
+        save_chunked(snap_dir, "data", _HostChunks(a.data, _NP_DTYPE[a.data.dtype]), st)
+    if vs.raw is not None:
+        save_chunked(snap_dir, "raw", _HostChunks(vs.raw, _NP_DTYPE[vs.raw.dtype]), st)
+    arrays = {
+        "levels": np.zeros((vs.capacity,), np.int8),
+        "alive": _host(idx.alive),
+        "mags": _host(a.mags),
+    }
+    if vs.kind in ("u8", "subbyte"):
+        arrays["sums"] = _host(a.sums)
+    _save_npz(snap_dir / "dense.npz", arrays)
+    n = vs.n
+    meta = {
+        "kind": vs.kind,
+        "metric": vs.metric,
+        "resolution": vs.resolution,
+        "range": list(vs.range),
+        "n": n,
+        "n_up": 0,
+        # the reference's scan-only ingest: every row at level 0, the
+        # first row the entry
+        "entry": 0 if n else -1,
+        "entry_level": 0 if n else -1,
+        "n_deleted": idx.n_deleted,
+        "level_counts": [n] + [0] * num_layers,
+        "configured_range": configured_range,
+        # rows arrive as exact f32 (the reference's wire format on a fast link)
+        "ship_dtype": "f32",
+        "capacity": int(vs.capacity),
+        "codes_on_host": False,
+        "scan_only": True,
+        "raw_dtype": vs.raw_dtype,
+    }
+    _atomic_write(snap_dir / "dense.msgpack", msgpack.packb(meta))
+    # graph files of a reference snapshot this one replaced no longer
+    # describe the store (removed only once the scan-only manifest is down)
+    for name in _GRAPH_ARRAYS:
+        for f in snap_dir.glob(f"{name}.*"):
+            f.unlink(missing_ok=True)
+    # every mutation after this save must mark its chunks at an epoch
+    # strictly above anything just recorded
+    vs.tracker.bump()
+
+
+def save_collection_state(coll, snap_dir: str | Path, archive: bool = False) -> None:
+    """Persist collection state into ``snap_dir``. ``archive=True`` marks a
+    one-shot version-context history dir (always full, self-contained)."""
+    snap_dir = Path(snap_dir)
+    snap_dir.mkdir(parents=True, exist_ok=True)
+    _save_maps(coll, snap_dir, archive=archive)
+    d = coll.dense
+    if d is not None and d.index is not None:
+        _save_dense(d.index, snap_dir, list(d.range), d.params.num_layers)
+
+
+def _replay_map_log(coll, dense_rows, log_p: Path):
+    """Apply maps.log frames on top of the loaded base."""
+    with open(log_p, "rb") as f:
+        unpacker = msgpack.Unpacker(f, strict_map_key=False)
+        for frame in unpacker:
+            for op in frame.get("ops", []):
+                if op[0] == "u":
+                    _, iid, rec = op
+                    iid = int(iid)
+                    ext = rec["id"]
+                    old = coll.etoi.get(ext)
+                    if old is not None and old != iid:
+                        coll.itoe.pop(old, None)
+                        old_rec = coll.raw.pop(old, None)
+                        if old_rec and old_rec.get("document_id") is not None:
+                            lst = coll.dtoi.get(old_rec["document_id"], [])
+                            if old in lst:
+                                lst.remove(old)
+                    coll.etoi[ext] = iid
+                    coll.itoe[iid] = ext
+                    coll.raw[iid] = rec
+                    if rec.get("document_id") is not None:
+                        coll.dtoi.setdefault(rec["document_id"], []).append(iid)
+                    coll.next_internal = max(coll.next_internal, iid + 1)
+                else:  # ("d", iid, ext)
+                    _, iid, ext = op
+                    iid = int(iid)
+                    coll.etoi.pop(ext, None)
+                    coll.itoe.pop(iid, None)
+                    rec = coll.raw.pop(iid, None)
+                    if rec and rec.get("document_id") is not None:
+                        lst = coll.dtoi.get(rec["document_id"], [])
+                        if iid in lst:
+                            lst.remove(iid)
+            drows = frame.get("drows")
+            if drows is not None and dense_rows is not None:
+                dense_rows["internal_of"].extend(drows["internal_of"])
+                for fld, vals in drows["field_rows"].items():
+                    base_len = len(dense_rows["internal_of"]) - len(vals)
+                    cur = dense_rows["field_rows"].setdefault(fld, [-1] * base_len)
+                    cur.extend(vals)
+    return dense_rows
+
+
+def _load_store(snap_dir: Path, meta: dict, z, dim: int, device) -> VectorStore:
+    """The VectorStore a dense snapshot describes, on ``device``.
+
+    ``ship_dtype`` (the wire format the reference ingested the rows with)
+    is not needed: the loaded codes serve as they are, and the port
+    quantizes new rows from exact f32 on the device, as the reference's
+    f32 wire does."""
+    if meta.get("codes_on_host"):
+        raise NotImplementedError(
+            "this snapshot's codes were spilled to host RAM; host-resident codes "
+            "are not ported yet (ROADMAP queue 1: spill tiers)"
+        )
+    if meta.get("capacity"):
+        cap = int(meta["capacity"])
+    else:  # pre-capacity layout: the graph's adjacency had one row per slot
+        with open(snap_dir / "adj0.meta.json") as f:
+            cap = int(json.load(f)["shape"][0])
+    raw = load_chunked(snap_dir, "raw")
+    if raw is None and load_chunked(snap_dir, "raw_host") is not None:
+        raise NotImplementedError(
+            "raw rows on the host or disk are not ported yet (ROADMAP queue 1: spill tiers)"
+        )
+    vs = VectorStore(
+        dim=dim, device=device, kind=meta["kind"], metric=meta["metric"],
+        resolution=int(meta["resolution"]), range=tuple(meta["range"]), keep_raw=False,
+        raw_dtype=meta.get("raw_dtype") or "f32", initial_capacity=cap,
+    )
+    if vs.capacity != cap:
+        raise ValueError(f"snapshot capacity {cap} is not a multiple of 128")
+
+    def dev(x, dtype=None):
+        return torch.as_tensor(np.ascontiguousarray(x), dtype=dtype, device=vs.device)
+
+    empty = vs.arrays  # carries the dequant scalars rebuilt from range/dim
+    mags = dev(z["mags"], torch.float32)
+    if vs.kind == "subbyte":
+        # int32 tensors holding the reference's uint32 words
+        planes = np.asarray(load_chunked(snap_dir, "planes"), np.uint32).view(np.int32)
+        vs.arrays = empty._replace(planes=dev(planes), sums=dev(z["sums"], torch.int32), mags=mags)
+    elif vs.kind == "u8":
+        data = dev(load_chunked(snap_dir, "data"), torch.int8)
+        vs.arrays = empty._replace(data=data, sums=dev(z["sums"], torch.int32), mags=mags)
+    else:
+        vs.arrays = empty._replace(data=dev(load_chunked(snap_dir, "data"), empty.data.dtype), mags=mags)
+    if raw is not None:
+        vs.raw = dev(raw)
+        vs.keep_raw = True
+    vs.n = int(meta["n"])
+    names = ["planes" if vs.kind == "subbyte" else "data"]
+    if raw is not None:
+        names.append("raw")
+    adopt_tracker(snap_dir, vs.tracker, names)
+    return vs
+
+
+def load_collection_state(coll, snap_dir: str | Path) -> None:
+    snap_dir = Path(snap_dir)
+    maps_path = snap_dir / "maps.msgpack"
+    dense_rows = None
+    if maps_path.exists():
+        with open(maps_path, "rb") as f:
+            maps = msgpack.unpackb(f.read(), strict_map_key=False)
+        coll.etoi = {k: v for k, v in maps["etoi"]}
+        coll.itoe = {v: k for k, v in maps["etoi"]}
+        coll.dtoi = {k: list(v) for k, v in maps["dtoi"]}
+        coll.raw = {int(k): v for k, v in maps["raw"]}
+        coll.next_internal = maps["next_internal"]
+        dense_rows = maps.get("dense_rows")
+        if dense_rows is not None:
+            dense_rows = {
+                "gen": dense_rows["gen"],
+                "internal_of": list(dense_rows["internal_of"]),
+                "field_rows": {f: list(v) for f, v in dense_rows["field_rows"].items()},
+            }
+        log_p = snap_dir / "maps.log"
+        if log_p.exists():
+            dense_rows = _replay_map_log(coll, dense_rows, log_p)
+
+    if (snap_dir / "dense_sharded.msgpack").exists() and coll.dense is not None:
+        raise NotImplementedError(
+            "sharded dense snapshots are not ported yet (ROADMAP queue 1: multi-GPU)"
+        )
+
+    dense_meta_p = snap_dir / "dense.msgpack"
+    if dense_meta_p.exists() and coll.dense is not None:
+        with open(dense_meta_p, "rb") as f:
+            meta = msgpack.unpackb(f.read(), strict_map_key=False)
+        d = coll.dense
+        z = np.load(snap_dir / "dense.npz")
+        d.kind = _SUBBYTE_NAME[int(meta["resolution"])] if meta["kind"] == "subbyte" else meta["kind"]
+        d.range = tuple(meta["configured_range"])
+        d._build()
+        idx = d.index
+        idx.store = _load_store(snap_dir, meta, z, d.dimension, d.device)
+        alive = np.ones(idx.store.capacity, bool)
+        saved_alive = np.asarray(z["alive"], bool)[: idx.store.capacity]
+        alive[: len(saved_alive)] = saved_alive
+        idx.alive = torch.as_tensor(alive, device=idx.store.device)
+        idx.n_deleted = int(meta["n_deleted"])
+        if dense_rows is None and "internal_of" in meta:
+            # pre-dense_rows layout kept the row maps in dense.msgpack
+            dense_rows = {
+                "gen": meta.get("gen", 0),
+                "internal_of": meta["internal_of"],
+                "field_rows": meta.get("field_rows", {}),
+            }
+        if dense_rows is not None:
+            d._gen = int(dense_rows["gen"])
+            d.internal_of = [int(x) for x in dense_rows["internal_of"]]
+            d.field_rows = {f: [int(x) for x in v] for f, v in dense_rows["field_rows"].items()}
+            d.row_of = {int(iid): r for r, iid in enumerate(d.internal_of) if alive[r]}
+    # incremental-maps bookkeeping
+    d = coll.dense
+    coll._maps_saved = {
+        "dense_gen": getattr(d, "_gen", 0) if d is not None else None,
+        "dense_mark": len(d.internal_of) if d is not None else 0,
+    }

@@ -1,0 +1,374 @@
+"""The port's REST server against the reference's: one script of requests
+(session; collection with a metadata schema; dense index; transaction
+upsert, commit and status poll; streaming upsert and delete; dense, batch
+and filtered search; GET vector; versions; 400/401/404 errors) runs through
+each app over aiohttp's TestClient, and every step must answer the same
+status and JSON. Scores agree within rtol 1e-5, atol 1e-6; result ids must
+agree where the reference's scores are untied. Timestamps, transaction ids
+and tokens differ by nature and are masked.
+
+The reference's indexes are kept off their graph build (scan-only from
+construction, as the port's are) and its wire probe is pinned fast, so it
+ships exact f32 rows and queries as the port does. The port's routes that
+are not ported (sparse, tf-idf, hybrid, neighbors) must answer 501 with a
+message that names their ROADMAP item, and a stored collection holding a
+sparse index must answer 501 too."""
+
+import asyncio
+
+import numpy as np
+import pytest
+from aiohttp.test_utils import TestClient, TestServer
+
+from cosdata_tpu.api.server import make_app as j_make_app
+from cosdata_tpu.config import load_config as j_load_config
+from cosdata_tpu.core.app_context import AppContext as JAppContext
+from cosdata_tpu.indexes import hnsw as JH
+from cosdata_tpu.ops import storage as JS
+from cosdata_tpu_torch.api.server import make_app as t_make_app
+from cosdata_tpu_torch.config import load_config as t_load_config
+from cosdata_tpu_torch.core.app_context import AppContext as TAppContext
+
+ADMIN = "parity-key"
+DIM, N, K = 48, 1200, 10
+#: values that differ between two runs of the same script
+VARYING = {
+    "transaction_id", "created_at", "access_token", "expires_at", "txn_id", "epoch_id",
+    "processing_time_seconds", "average_throughput", "current_processing_rate",
+    "estimated_completion",
+}
+SCHEMA = {"fields": [{"name": "color", "values": ["red", "blue"]}], "supported_conditions": []}
+
+
+def _unit(n, seed):
+    x = np.random.default_rng(seed).normal(size=(n, DIM)).astype(np.float32)
+    return x / np.linalg.norm(x, axis=1, keepdims=True)
+
+
+def _vec(i, x):
+    v = {"id": f"v{i}", "dense_values": [round(float(a), 6) for a in x[i]]}
+    if i % 2 == 0:
+        v["metadata"] = {"color": "red" if i % 4 == 0 else "blue"}
+    return v
+
+
+async def _script(client) -> list:
+    """The request script; returns [(step, status, body)]."""
+    out = []
+
+    async def call(step, method, path, **kw):
+        resp = await getattr(client, method)(path, **kw)
+        body = await resp.json()
+        out.append((step, resp.status, body))
+        return body
+
+    x = _unit(N + 20, 0)
+    q = _unit(8, 1)
+    tok = (await call("session", "post", "/auth/create-session",
+                      json={"username": "admin", "password": ADMIN}))["access_token"]
+    h = {"Authorization": f"Bearer {tok}"}
+    c = "/vectordb/collections/par"
+    await call("create_collection", "post", "/vectordb/collections", headers=h, json={
+        "name": "par", "dense_vector": {"enabled": True, "dimension": DIM},
+        "sparse_vector": {"enabled": True}, "metadata_schema": SCHEMA,
+    })
+    await call("create_index", "post", c + "/indexes/dense", headers=h, json={
+        "name": "par_dense", "distance_metric_type": "cosine",
+        "quantization": {"type": "auto", "sample_threshold": 100},
+    })
+    txn = (await call("create_txn", "post", c + "/transactions", headers=h, json={}))["transaction_id"]
+    for s in range(0, N, 400):
+        await call("txn_upsert", "post", f"{c}/transactions/{txn}/upsert", headers=h,
+                   json={"vectors": [_vec(i, x) for i in range(s, s + 400)]})
+    await call("txn_delete", "delete", f"{c}/transactions/{txn}/vectors/v3", headers=h)
+    await call("commit", "post", f"{c}/transactions/{txn}/commit", headers=h, json={})
+    for _ in range(600):
+        resp = await client.get(f"{c}/transactions/{txn}/status", headers=h)
+        if (await resp.json())["status"] == "complete":
+            break
+        await asyncio.sleep(0.05)
+    await call("txn_status", "get", f"{c}/transactions/{txn}/status", headers=h)
+    await call("stream_upsert", "post", c + "/streaming/upsert", headers=h,
+               json={"vectors": [_vec(i, x) for i in range(N, N + 20)]})
+    await call("stream_delete", "delete", c + "/streaming/vectors/v5", headers=h)
+    for name, qv in (("self", x[7]), ("deleted", x[5]), ("query", q[0])):
+        await call(f"search_{name}", "post", c + "/search/dense", headers=h,
+                   json={"query_vector": qv.tolist(), "top_k": K})
+    await call("batch_search", "post", c + "/search/batch-dense", headers=h, json={
+        "queries": [{"vector": v.tolist()} for v in q], "top_k": 5,
+    })
+    await call("filtered_search", "post", c + "/search/dense", headers=h, json={
+        "query_vector": q[2].tolist(), "top_k": K,
+        "filter": {"Is": {"field_name": "color", "field_value": "red", "operator": "Equal"}},
+    })
+    await call("get_vector", "get", c + "/vectors/v8", headers=h)
+    await call("get_streamed_vector", "get", f"{c}/vectors/v{N + 3}", headers=h)
+    await call("versions", "get", c + "/versions", headers=h)
+    await call("current_version", "get", c + "/versions/current", headers=h)
+    await call("indexing_status", "get", c + "/indexing_status", headers=h)
+    await call("list_indexes", "get", c + "/indexes", headers=h)
+    await call("err_wrong_dim", "post", c + "/streaming/upsert", headers=h,
+               json={"vectors": [{"id": "bad", "dense_values": [0.1, 0.2]}]})
+    await call("err_missing_field", "post", c + "/search/dense", headers=h, json={"top_k": 3})
+    await call("err_no_session", "get", "/vectordb/collections")
+    await call("err_bad_password", "post", "/auth/create-session",
+               json={"username": "admin", "password": "wrong"})
+    await call("err_no_collection", "post", "/vectordb/collections/ghost/search/dense",
+               headers=h, json={"query_vector": [0.1] * DIM})
+    await call("err_no_vector", "get", c + "/vectors/ghost", headers=h)
+    await call("err_no_txn", "post", c + "/transactions/zzz/commit", headers=h, json={})
+    return out
+
+
+def _transcript(ctx, make_app):
+    async def run():
+        client = TestClient(TestServer(make_app(ctx)))
+        await client.start_server()
+        try:
+            return await _script(client)
+        finally:
+            await client.close()
+
+    return asyncio.run(run())
+
+
+@pytest.fixture(scope="module")
+def transcripts(tmp_path_factory):
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(JS, "_WIRE_BW_MBPS", 1e9)
+        init = JH.HNSWIndex.__init__
+
+        def scan_only_init(self, *a, **kw):
+            init(self, *a, **kw)
+            self.scan_only = True
+
+        mp.setattr(JH.HNSWIndex, "__init__", scan_only_init)
+        jd = tmp_path_factory.mktemp("ref")
+        ref = _transcript(JAppContext(j_load_config(data_path=str(jd)), admin_key=ADMIN), j_make_app)
+    td = tmp_path_factory.mktemp("port")
+    ctx = TAppContext(t_load_config(data_path=str(td)), admin_key=ADMIN, device="cpu")
+    try:
+        port = _transcript(ctx, t_make_app)
+    finally:
+        ctx.close()
+    return {step: (status, body) for step, status, body in ref}, {
+        step: (status, body) for step, status, body in port
+    }
+
+
+def _untied(s, rtol=1e-5):
+    s = np.asarray(s, np.float64)
+    tol = rtol * np.abs(s) + 1e-7
+    gap = s[:-1] - s[1:]
+    prev = np.concatenate([[np.inf], gap])
+    nxt = np.concatenate([gap, [np.inf]])
+    return (prev > tol) & (nxt > tol)
+
+
+def _compare_results(t, j):
+    """Ranked result lists: scores within tolerance, ids where untied."""
+    assert len(t) == len(j)
+    if not j:
+        return
+    ts = [r["score"] for r in t]
+    js = [r["score"] for r in j]
+    np.testing.assert_allclose(ts, js, rtol=1e-5, atol=1e-6)
+    u = _untied(js)
+    assert [r["id"] for r, ok in zip(t, u) if ok] == [r["id"] for r, ok in zip(j, u) if ok]
+    for a, b, ok in zip(t, j, u):
+        if ok:
+            assert {k: v for k, v in a.items() if k != "score"} == {k: v for k, v in b.items() if k != "score"}
+
+
+def _compare(t, j):
+    """Equal JSON with masked varying values, floats within tolerance and
+    ranked result lists compared by _compare_results."""
+    if isinstance(j, dict):
+        assert isinstance(t, dict) and set(t) == set(j), (t, j)
+        for k in j:
+            if k in VARYING:
+                continue
+            if k == "results":
+                _compare_results(t[k], j[k])
+            else:
+                _compare(t[k], j[k])
+    elif isinstance(j, list):
+        assert isinstance(t, list) and len(t) == len(j), (t, j)
+        for a, b in zip(t, j):
+            _compare(a, b)
+    elif isinstance(j, float):
+        np.testing.assert_allclose(t, j, rtol=1e-5, atol=1e-6)
+    else:
+        assert t == j
+
+
+STEPS = [
+    "session", "create_collection", "create_index", "create_txn", "txn_upsert", "txn_delete",
+    "commit", "txn_status", "stream_upsert", "stream_delete", "search_self", "search_deleted",
+    "search_query", "batch_search", "filtered_search", "get_vector", "get_streamed_vector",
+    "versions", "current_version", "indexing_status", "list_indexes", "err_wrong_dim",
+    "err_missing_field", "err_no_session", "err_bad_password", "err_no_collection",
+    "err_no_vector", "err_no_txn",
+]
+
+
+@pytest.mark.parametrize("step", STEPS)
+def test_step_matches_reference(transcripts, step):
+    ref, port = transcripts
+    (j_status, j_body), (t_status, t_body) = ref[step], port[step]
+    assert t_status == j_status, (t_body, j_body)
+    _compare(t_body, j_body)
+
+
+def test_script_semantics(transcripts):
+    _, port = transcripts
+    assert port["search_self"][1]["results"][0]["id"] == "v7"
+    assert "v5" not in [r["id"] for r in port["search_deleted"][1]["results"]]
+    reds = {f"v{i}" for i in range(0, N, 4)}
+    got = [r["id"] for r in port["filtered_search"][1]["results"]]
+    assert len(got) == K and set(got) <= reds
+    assert port["get_vector"][1]["metadata"] == {"color": "red"}
+    assert port["txn_status"][1]["records_upserted"] == N
+    assert [s for s, (st, _) in port.items() if st >= 400] == [s for s in STEPS if s.startswith("err_")]
+
+
+def _run_port(tmp_path, script, ctx=None):
+    ctx = ctx or TAppContext(t_load_config(data_path=str(tmp_path)), admin_key=ADMIN, device="cpu")
+
+    async def run():
+        client = TestClient(TestServer(t_make_app(ctx)))
+        await client.start_server()
+        try:
+            return await script(client)
+        finally:
+            await client.close()
+
+    try:
+        return asyncio.run(run())
+    finally:
+        ctx.close()
+
+
+async def _login(client):
+    resp = await client.post("/auth/create-session", json={"username": "admin", "password": ADMIN})
+    return {"Authorization": f"Bearer {(await resp.json())['access_token']}"}
+
+
+def test_not_ported_routes_answer_501(tmp_path):
+    async def script(client):
+        h = await _login(client)
+        c = "/vectordb/collections/sp"
+        await client.post("/vectordb/collections", headers=h, json={
+            "name": "sp", "dense_vector": {"enabled": True, "dimension": 4},
+            "sparse_vector": {"enabled": True}, "tf_idf_options": {"enabled": True},
+        })
+        out = {}
+        for name, method, path, body in (
+            ("sparse_index", "post", c + "/indexes/sparse", {"quantization": 64}),
+            ("tfidf_index", "post", c + "/indexes/tf-idf", {}),
+            ("sparse_search", "post", c + "/search/sparse", {"query_terms": [[1, 0.5]]}),
+            ("batch_sparse", "post", c + "/search/batch-sparse", {"query_terms_list": [[[1, 0.5]]]}),
+            ("tfidf_search", "post", c + "/search/tf-idf", {"query": "hello"}),
+            ("batch_tfidf", "post", c + "/search/batch-tf-idf", {"queries": ["hello"]}),
+            ("hybrid", "post", c + "/search/hybrid", {"query_vector": [0.1] * 4, "query_text": "a"}),
+            ("batch_hybrid", "post", c + "/search/batch-hybrid",
+             {"queries": [{"query_vector": [0.1] * 4, "query_text": "a"}]}),
+            ("neighbors", "get", c + "/vectors/1/neighbors", None),
+        ):
+            kw = {"json": body} if body is not None else {}
+            resp = await getattr(client, method)(path, headers=h, **kw)
+            out[name] = (resp.status, await resp.json())
+        return out
+
+    out = _run_port(tmp_path, script)
+    for name, (status, body) in out.items():
+        assert status == 501, (name, status, body)
+        assert "ROADMAP queue 1" in body["error"], (name, body)
+    assert "sparse, BM25 and hybrid" in out["sparse_search"][1]["error"]
+    assert "the graph" in out["neighbors"][1]["error"]
+
+
+def test_stored_sparse_collection_answers_501(tmp_path):
+    """A collection stored with a sparse index (written by the reference)
+    stays out of the port's loaded collections and answers 501 with the
+    reason; the port does not serve it with the sparse index dropped."""
+    ref = JAppContext(j_load_config(data_path=str(tmp_path)), admin_key=ADMIN)
+    coll = ref.create_collection({
+        "name": "mixed", "dense_vector": {"enabled": True, "dimension": 4},
+        "sparse_vector": {"enabled": True},
+    })
+    coll.create_sparse_index()
+    ref.create_collection({"name": "plain", "dense_vector": {"enabled": True, "dimension": 4}})
+    ref.indexing.stop()
+    ref.meta.close()
+
+    async def script(client):
+        h = await _login(client)
+        out = {}
+        for name in ("mixed", "plain"):
+            resp = await client.get(f"/vectordb/collections/{name}", headers=h)
+            out[name] = (resp.status, await resp.json())
+        resp = await client.get("/vectordb/collections", headers=h)
+        out["list"] = [c["name"] for c in (await resp.json())["collections"]]
+        return out
+
+    out = _run_port(tmp_path, script)
+    assert out["mixed"][0] == 501 and "ROADMAP queue 1: sparse" in out["mixed"][1]["error"]
+    assert out["plain"][0] == 200
+    assert out["list"] == ["plain"]
+
+
+def test_cli_requires_device(tmp_path):
+    """``python -m cosdata_tpu_torch`` has no default device."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    for extra, want in (([], "--device"), (["--device", "tpu"], "cuda, cuda:N or cpu")):
+        out = subprocess.run(
+            [sys.executable, "-m", "cosdata_tpu_torch", "--admin-key", "k",
+             "--data-path", str(tmp_path), "--no-grpc", *extra],
+            cwd=root, capture_output=True, text=True, timeout=120,
+        )
+        assert out.returncode == 2 and want in out.stderr, out.stderr
+
+
+def test_concurrent_mixed_top_k_searches_match_lone_searches(tmp_path):
+    """Searches from many threads coalesce in the MicroBatcher at max(top_k);
+    each must get exactly what it gets alone."""
+    import sys
+    import threading
+
+    ctx = TAppContext(t_load_config(data_path=str(tmp_path)), admin_key=ADMIN, device="cpu")
+    try:
+        coll = ctx.create_collection({"name": "mb", "dense_vector": {"enabled": True, "dimension": DIM}})
+        coll.create_dense_index(quantization={"type": "scalar", "data_type": "u8"})
+        x = _unit(500, 3)
+        coll.index_embeddings([{"id": i, "dense_values": x[i].tolist()} for i in range(500)])
+        q = _unit(32, 4)
+        ks = [3, 10, 5, 1] * 8
+        alone = [coll.search_dense(q[i : i + 1], ks[i])[0] for i in range(32)]
+        got = [None] * 32
+        old = sys.getswitchinterval()
+        sys.setswitchinterval(1e-5)
+        try:
+            def worker(i):
+                got[i] = coll.search_dense(q[i : i + 1], ks[i])[0]
+
+            threads = [threading.Thread(target=worker, args=(i,)) for i in range(32)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=60)
+            assert not any(t.is_alive() for t in threads)
+        finally:
+            sys.setswitchinterval(old)
+        # the same ids and lengths; scores to f32 rounding (a batch's
+        # product may sum in another order than a lone query's)
+        assert [[r["id"] for r in row] for row in got] == [[r["id"] for r in row] for row in alone]
+        assert [len(row) for row in got] == ks
+        np.testing.assert_allclose([r["score"] for row in got for r in row],
+                                   [r["score"] for row in alone for r in row], rtol=1e-6, atol=1e-7)
+    finally:
+        ctx.close()

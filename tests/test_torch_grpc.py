@@ -1,0 +1,222 @@
+"""The port's gRPC server against the reference's: one script of calls
+(session; collection; dense index; transaction upsert and commit;
+FindSimilarVectors; GetVector; reflection; the UNAUTHENTICATED and
+NOT_FOUND errors) runs through an in-process server over each package's
+AppContext, and every call must answer the same status code and message.
+Scores agree within rtol 1e-5, atol 1e-6; match ids must agree where the
+reference's scores are untied. The reference's indexes are kept off their
+graph build and its wire probe is pinned fast, as in test_torch_api.py. A
+sparse or tf-idf index or search answers UNIMPLEMENTED from the port, with
+its ROADMAP item."""
+
+import re
+
+import grpc
+import numpy as np
+import pytest
+from google.protobuf import empty_pb2
+from google.protobuf.json_format import MessageToDict
+
+from cosdata_tpu.api.auth import SessionManager as JSessions
+from cosdata_tpu.config import load_config as j_load_config
+from cosdata_tpu.core.app_context import AppContext as JAppContext
+from cosdata_tpu.grpc_api.server import build_server as j_build_server
+from cosdata_tpu.indexes import hnsw as JH
+from cosdata_tpu.ops import storage as JS
+from cosdata_tpu_torch.api.auth import SessionManager as TSessions
+from cosdata_tpu_torch.config import load_config as t_load_config
+from cosdata_tpu_torch.core.app_context import AppContext as TAppContext
+from cosdata_tpu_torch.grpc_api import reflection_v1alpha_pb2 as rpb
+from cosdata_tpu_torch.grpc_api import vector_service_pb2 as pb
+from cosdata_tpu_torch.grpc_api.server import build_server as t_build_server
+
+ADMIN = "grpc-parity"
+DIM, N, K = 32, 300, 5
+
+
+def _call(channel, service, method, req, resp_cls, token=None):
+    fn = channel.unary_unary(
+        f"/vector_service.{service}/{method}",
+        request_serializer=lambda m: m.SerializeToString(),
+        response_deserializer=resp_cls.FromString,
+    )
+    md = [("authorization", f"Bearer {token}")] if token else []
+    return fn(req, metadata=md, timeout=60)
+
+
+def _script(ctx, channel) -> dict:
+    """Returns {step: ("OK", response dict) or (status code name, details)}."""
+    out = {}
+
+    def call(step, service, method, req, resp_cls, token=None):
+        try:
+            resp = _call(channel, service, method, req, resp_cls, token)
+        except grpc.RpcError as e:
+            out[step] = (e.code().name, e.details())
+            return None
+        out[step] = ("OK", MessageToDict(resp, preserving_proto_field_name=True))
+        return resp
+
+    x = np.random.default_rng(0).normal(size=(N, DIM)).astype(np.float32)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    call("bad_password", "AuthService", "CreateSession",
+         pb.CreateSessionRequest(username="admin", password="no"), pb.CreateSessionResponse)
+    tok = call("session", "AuthService", "CreateSession",
+               pb.CreateSessionRequest(username="admin", password=ADMIN), pb.CreateSessionResponse).access_token
+    call("no_session", "CollectionsService", "GetCollections",
+         pb.GetCollectionsRequest(), pb.GetCollectionsResponse)
+    call("create_collection", "CollectionsService", "CreateCollection", pb.CreateCollectionRequest(
+        name="g", dense_vector=pb.DenseVectorOptions(enabled=True, dimension=DIM),
+        sparse_vector=pb.SparseVectorOptions(enabled=True),
+    ), pb.CreateCollectionResponse, tok)
+    call("get_collection", "CollectionsService", "GetCollection",
+         pb.GetCollectionRequest(collection_id="g"), pb.Collection, tok)
+    call("get_collections", "CollectionsService", "GetCollections",
+         pb.GetCollectionsRequest(), pb.GetCollectionsResponse, tok)
+    call("no_collection", "CollectionsService", "GetCollection",
+         pb.GetCollectionRequest(collection_id="ghost"), pb.Collection, tok)
+    call("create_index", "IndexesService", "CreateDenseIndex", pb.CreateDenseIndexRequest(
+        collection_id="g", distance_metric_type="cosine",
+        auto=pb.AutoQuantization(sample_threshold=64),
+    ), empty_pb2.Empty, tok)
+    txn = call("create_txn", "TransactionsService", "CreateTransaction",
+               pb.CreateTransactionRequest(collection_id="g"), pb.CreateTransactionResponse, tok).transaction_id
+    req = pb.UpsertVectorsRequest(collection_id="g", transaction_id=txn)
+    for i in range(N):
+        req.vectors.add(id=f"v{i}", dense_values=x[i].tolist())
+    call("upsert", "TransactionsService", "UpsertVectors", req, empty_pb2.Empty, tok)
+    call("txn_delete", "TransactionsService", "DeleteVectorInTransaction",
+         pb.DeleteVectorInTransactionRequest(collection_id="g", transaction_id=txn, vector_id="v4"),
+         empty_pb2.Empty, tok)
+    call("commit", "TransactionsService", "CommitTransaction",
+         pb.CommitTransactionRequest(collection_id="g", transaction_id=txn), empty_pb2.Empty, tok)
+    call("commit_again", "TransactionsService", "CommitTransaction",
+         pb.CommitTransactionRequest(collection_id="g", transaction_id=txn), empty_pb2.Empty, tok)
+    ctx.indexing.wait_idle()
+    for name, v in (("self", x[9]), ("deleted", x[4]), ("query", -x[11] + x[12])):
+        call(f"find_{name}", "VectorsService", "FindSimilarVectors", pb.FindSimilarVectorsRequest(
+            collection_id="g", dense=pb.FindSimilarDenseVectorsQuery(vector=v.tolist(), top_k=K),
+        ), pb.FindSimilarVectorsResponse, tok)
+    call("get_vector", "VectorsService", "GetVector",
+         pb.GetVectorRequest(collection_id="g", vector_id="v9"), pb.VectorResponse, tok)
+    call("no_vector", "VectorsService", "GetVector",
+         pb.GetVectorRequest(collection_id="g", vector_id="ghost"), pb.VectorResponse, tok)
+    return out
+
+
+def _transcript(ctx, build_server, sessions):
+    server = build_server(ctx, sessions, address="127.0.0.1:0")
+    port = server.add_insecure_port("127.0.0.1:0")
+    server.start()
+    channel = grpc.insecure_channel(f"127.0.0.1:{port}")
+    try:
+        out = _script(ctx, channel)
+        fn = channel.stream_stream(
+            "/grpc.reflection.v1alpha.ServerReflection/ServerReflectionInfo",
+            request_serializer=lambda m: m.SerializeToString(),
+            response_deserializer=rpb.ServerReflectionResponse.FromString,
+        )
+        resp = list(fn(iter([rpb.ServerReflectionRequest(host="", list_services="*")]), timeout=30))
+        out["reflection"] = ("OK", sorted(s.name for s in resp[0].list_services_response.service))
+        return out
+    finally:
+        channel.close()
+        server.stop(0)
+
+
+@pytest.fixture(scope="module")
+def transcripts(tmp_path_factory):
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(JS, "_WIRE_BW_MBPS", 1e9)
+        init = JH.HNSWIndex.__init__
+
+        def scan_only_init(self, *a, **kw):
+            init(self, *a, **kw)
+            self.scan_only = True
+
+        mp.setattr(JH.HNSWIndex, "__init__", scan_only_init)
+        jctx = JAppContext(j_load_config(data_path=str(tmp_path_factory.mktemp("ref"))), admin_key=ADMIN)
+        ref = _transcript(jctx, j_build_server, JSessions(ADMIN))
+    tctx = TAppContext(t_load_config(data_path=str(tmp_path_factory.mktemp("port"))), admin_key=ADMIN, device="cpu")
+    try:
+        port = _transcript(tctx, t_build_server, TSessions(ADMIN))
+    finally:
+        tctx.close()
+    return ref, port
+
+
+STEPS = [
+    "bad_password", "session", "no_session", "create_collection", "get_collection",
+    "get_collections", "no_collection", "create_index", "create_txn", "upsert", "txn_delete",
+    "commit", "commit_again", "find_self", "find_deleted", "find_query", "get_vector",
+    "no_vector", "reflection",
+]
+VARYING = {"access_token", "created_at", "expires_at", "transaction_id"}
+
+
+def _untied(s, rtol=1e-5):
+    s = np.asarray(s, np.float64)
+    tol = rtol * np.abs(s) + 1e-7
+    gap = s[:-1] - s[1:]
+    return (np.concatenate([[np.inf], gap]) > tol) & (np.concatenate([gap, [np.inf]]) > tol)
+
+
+@pytest.mark.parametrize("step", STEPS)
+def test_call_matches_reference(transcripts, step):
+    ref, port = transcripts
+    (j_code, j_body), (t_code, t_body) = ref[step], port[step]
+    assert t_code == j_code, (t_body, j_body)
+    if isinstance(j_body, dict):
+        j_body = {k: v for k, v in j_body.items() if k not in VARYING}
+        t_body = {k: v for k, v in t_body.items() if k not in VARYING}
+        if "matches" in j_body:
+            jm, tm = j_body.pop("matches"), t_body.pop("matches")
+            assert len(tm) == len(jm) == K
+            js = [m["score"] for m in jm]
+            np.testing.assert_allclose([m["score"] for m in tm], js, rtol=1e-5, atol=1e-6)
+            u = _untied(js)
+            assert [m["id"] for m, ok in zip(tm, u) if ok] == [m["id"] for m, ok in zip(jm, u) if ok]
+    elif isinstance(j_body, str):  # an error's details may name the transaction id
+        j_body, t_body = (re.sub(r"\b[0-9a-f]{16}\b", "<txn>", s) for s in (j_body, t_body))
+    assert t_body == j_body
+
+
+def test_port_semantics(transcripts):
+    _, port = transcripts
+    assert port["find_self"][1]["matches"][0]["id"] == "v9"
+    assert "v4" not in [m["id"] for m in port["find_deleted"][1]["matches"]]
+    assert len(port["get_vector"][1]["vector"]["dense_values"]) == DIM
+    assert port["no_session"][0] == "UNAUTHENTICATED" and port["no_vector"][0] == "NOT_FOUND"
+
+
+def test_sparse_answers_unimplemented(tmp_path):
+    ctx = TAppContext(t_load_config(data_path=str(tmp_path)), admin_key=ADMIN, device="cpu")
+    server = t_build_server(ctx, TSessions(ADMIN), address="127.0.0.1:0")
+    port = server.add_insecure_port("127.0.0.1:0")
+    server.start()
+    ch = grpc.insecure_channel(f"127.0.0.1:{port}")
+    try:
+        tok = _call(ch, "AuthService", "CreateSession",
+                    pb.CreateSessionRequest(username="admin", password=ADMIN), pb.CreateSessionResponse).access_token
+        _call(ch, "CollectionsService", "CreateCollection", pb.CreateCollectionRequest(
+            name="s", dense_vector=pb.DenseVectorOptions(enabled=True, dimension=4),
+            sparse_vector=pb.SparseVectorOptions(enabled=True), tf_idf_options=pb.TFIDFOptions(enabled=True),
+        ), pb.CreateCollectionResponse, tok)
+        for service, method, req, resp_cls in (
+            ("IndexesService", "CreateSparseIndex", pb.CreateSparseIndexRequest(collection_id="s"), empty_pb2.Empty),
+            ("IndexesService", "CreateTFIDFIndex", pb.CreateTFIDFIndexRequest(collection_id="s"), empty_pb2.Empty),
+            ("VectorsService", "FindSimilarVectors", pb.FindSimilarVectorsRequest(
+                collection_id="s", sparse=pb.FindSimilarSparseVectorsQuery(top_k=3),
+            ), pb.FindSimilarVectorsResponse),
+            ("VectorsService", "FindSimilarVectors", pb.FindSimilarVectorsRequest(
+                collection_id="s", tf_idf=pb.FindSimilarTFIDFDocumentQuery(query="hello", top_k=3),
+            ), pb.FindSimilarVectorsResponse),
+        ):
+            with pytest.raises(grpc.RpcError) as e:
+                _call(ch, service, method, req, resp_cls, tok)
+            assert e.value.code() == grpc.StatusCode.UNIMPLEMENTED, (method, e.value.details())
+            assert "ROADMAP queue 1: sparse, BM25 and hybrid" in e.value.details()
+    finally:
+        ch.close()
+        server.stop(0)
+        ctx.close()

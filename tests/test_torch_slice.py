@@ -284,6 +284,8 @@ def test_routes_not_ported_raise(data, handles):
 def test_port_imports_neither_jax_nor_reference():
     code = (
         "import sys, pkgutil, importlib, cosdata_tpu_torch\n"
+        "for name in ('api.server', 'grpc_api.server', 'store.snapshots', '__main__'):\n"
+        "    importlib.import_module('cosdata_tpu_torch.' + name)\n"
         "for m in pkgutil.walk_packages(cosdata_tpu_torch.__path__, 'cosdata_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'cosdata_tpu'))\n"
@@ -294,4 +296,4 @@ def test_port_imports_neither_jax_nor_reference():
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 16
+    assert int(out.stdout.strip()) >= 40

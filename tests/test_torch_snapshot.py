@@ -1,0 +1,186 @@
+"""A collection written by the reference opens in the port. The reference's
+AppContext (JAX on the CPU, graph built) ingests 2,000 x 64 clustered rows
+(bench.py's gen_clustered formula) per kind (u8 "auto", quaternary, f32)
+through a transaction with metadata and deletes, then streams a few more upserts and a delete, and closes: its
+snapshot holds the graph arrays, and the streamed ops stay in a durable
+WAL. The port's AppContext (device "cpu") opens the same data dir, skips
+the graph, loads the store and replays the WAL. Its dense searches,
+filtered and unfiltered, give the reference's ids where the reference's
+scores are untied, with scores within rtol 1e-5, atol 1e-6; GET vector
+gives the same record. The port then writes its own (scan-only) snapshot,
+which answers identically after a restart and which the reference loads
+back. The reference serves tombstoned rows from a scan-only snapshot (its
+loader replaces ``alive`` by a (1,) dummy that ``search_brute_device``
+broadcasts), which its result formatting then drops, so its lists there
+are the port's lists less some entries, in the same order."""
+
+import numpy as np
+import pytest
+import torch
+
+from cosdata_tpu.config import load_config as j_load_config
+from cosdata_tpu.core.app_context import AppContext as JAppContext
+from cosdata_tpu.ops import storage as JS
+from cosdata_tpu_torch.config import load_config as t_load_config
+from cosdata_tpu_torch.core.app_context import AppContext as TAppContext
+
+torch.set_num_threads(1)
+ADMIN = "snap-key"
+DIM, N, NQ, K = 64, 2000, 8, 10
+KINDS = {
+    "u8": {"type": "auto", "sample_threshold": 100},
+    "quaternary": {"type": "scalar", "data_type": "quaternary"},
+    "f32": {"type": "scalar", "data_type": "f32"},
+}
+SCHEMA = {"fields": [{"name": "color", "values": ["red", "blue"]}], "supported_conditions": []}
+RED = {"Is": {"field_name": "color", "field_value": "red", "operator": "Equal"}}
+PROBE_IDS = [8, 9, 41, N + 2]
+
+
+def gen_clustered(n, nq, seed=0):
+    """bench.py's gen_clustered formula (copied, without its file cache)."""
+    rng = np.random.default_rng(seed)
+    n_clusters = max(n // 100, 16)
+    centers = rng.standard_normal(size=(n_clusters, DIM), dtype=np.float32)
+    centers /= np.linalg.norm(centers, axis=1, keepdims=True)
+    noise = np.float32(0.5 / np.sqrt(DIM))
+
+    def rows(m):
+        x = rng.standard_normal(size=(m, DIM), dtype=np.float32) * noise
+        x += centers[rng.integers(0, n_clusters, m)]
+        return x / np.linalg.norm(x, axis=1, keepdims=True)
+
+    return rows(n), rows(nq)
+
+
+def _vec(i, x):
+    v = {"id": i, "dense_values": x[i].tolist()}
+    if i % 2 == 0:
+        v["metadata"] = {"color": "red" if i % 4 == 0 else "blue"}
+    return v
+
+
+def _answers(ctx, q):
+    out = {}
+    for name in KINDS:
+        coll = ctx.get_collection(name)
+        out[name] = {
+            "plain": coll.search_dense(q, K),
+            "filtered": coll.search_dense(q, K, filter_dto=RED),
+            "vectors": [coll.get_vector(i) for i in PROBE_IDS],
+        }
+    return out
+
+
+def _reference_writes(data_dir, x, q):
+    ctx = JAppContext(j_load_config(data_path=str(data_dir)), admin_key=ADMIN)
+    for name, quant in KINDS.items():
+        coll = ctx.create_collection({
+            "name": name, "dense_vector": {"enabled": True, "dimension": DIM},
+            "metadata_schema": SCHEMA,
+        })
+        coll.create_dense_index(quantization=quant)
+        txn = coll.create_transaction()
+        coll.txn_upsert(txn.txn_id, [_vec(i, x) for i in range(N)], True)
+        for i in range(3, 90, 3):
+            coll.txn_delete(txn.txn_id, i)
+        coll.index_version(coll.commit_transaction(txn.txn_id), txn)
+        coll.stream_upsert([_vec(i, x) for i in range(N, N + 10)])
+        coll.stream_delete(41)
+        assert not coll.dense.index.scan_only  # the snapshot holds the graph
+    answers = _answers(ctx, q)
+    ctx.indexing.stop()
+    ctx.meta.close()
+    return answers
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    data_dir = tmp_path_factory.mktemp("data")
+    x, q = gen_clustered(N + 10, NQ)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(JS, "_WIRE_BW_MBPS", 1e9)  # the reference ships exact f32 rows and queries
+        ref = _reference_writes(data_dir, x, q)
+        snap = {name: data_dir / "collections" / name / "snapshot" for name in KINDS}
+        graph_before = {name: (p / "adj0.meta.json").exists() for name, p in snap.items()}
+        wals_before = {name: len(list(p.parent.glob("*.wal"))) for name, p in snap.items()}
+        port_ctx = TAppContext(t_load_config(data_path=str(data_dir)), admin_key=ADMIN, device="cpu")
+        port = _answers(port_ctx, q)
+        wals_after = {name: len(list(p.parent.glob("*.wal"))) for name, p in snap.items()}
+        graph_after = {name: (p / "adj0.meta.json").exists() for name, p in snap.items()}
+        port_ctx.close()
+        restart_ctx = TAppContext(t_load_config(data_path=str(data_dir)), admin_key=ADMIN, device="cpu")
+        restart = _answers(restart_ctx, q)
+        restart_ctx.close()
+        back_ctx = JAppContext(j_load_config(data_path=str(data_dir)), admin_key=ADMIN)
+        back = _answers(back_ctx, q)
+        back_ctx.indexing.stop()
+        back_ctx.meta.close()
+    return {
+        "ref": ref, "port": port, "restart": restart, "back": back,
+        "files": (graph_before, wals_before, wals_after, graph_after),
+    }
+
+
+def _untied(s, rtol=1e-5):
+    s = np.asarray(s, np.float64)
+    tol = rtol * np.abs(s) + 1e-7
+    gap = s[:-1] - s[1:]
+    return (np.concatenate([[np.inf], gap]) > tol) & (np.concatenate([gap, [np.inf]]) > tol)
+
+
+def _same_results(t, j):
+    assert len(t) == len(j)
+    for t_row, j_row in zip(t, j):
+        assert len(t_row) == len(j_row) == K
+        js = [r["score"] for r in j_row]
+        np.testing.assert_allclose([r["score"] for r in t_row], js, rtol=1e-5, atol=1e-6)
+        u = _untied(js)
+        assert u.mean() > 0.5
+        assert [r["id"] for r, ok in zip(t_row, u) if ok] == [r["id"] for r, ok in zip(j_row, u) if ok]
+
+
+@pytest.mark.parametrize("kind", list(KINDS))
+def test_search_matches_reference(runs, kind):
+    _same_results(runs["port"][kind]["plain"], runs["ref"][kind]["plain"])
+
+
+@pytest.mark.parametrize("kind", list(KINDS))
+def test_filtered_search_matches_reference(runs, kind):
+    t, j = runs["port"][kind]["filtered"], runs["ref"][kind]["filtered"]
+    _same_results(t, j)
+    assert all(r["id"] % 4 == 0 for row in t for r in row)
+
+
+@pytest.mark.parametrize("kind", list(KINDS))
+def test_get_vector_matches_reference(runs, kind):
+    t, j = runs["port"][kind]["vectors"], runs["ref"][kind]["vectors"]
+    assert t == j
+    assert j[2] is None and len(j[3]["dense_values"]) == DIM  # 41 deleted, N + 2 streamed
+
+
+@pytest.mark.parametrize("kind", list(KINDS))
+def test_port_snapshot_round_trip(runs, kind):
+    """The port replayed the streamed WAL, wrote its own scan-only snapshot
+    (no graph files), and a restarted port answers identically."""
+    graph_before, wals_before, wals_after, graph_after = runs["files"]
+    assert graph_before[kind] and not graph_after[kind]
+    assert (wals_before[kind], wals_after[kind]) == (1, 0)
+    assert runs["restart"][kind] == runs["port"][kind]
+
+
+def _in_order_subset(j_rows, t_rows):
+    for j_row, t_row in zip(j_rows, t_rows):
+        t_scores = {r["id"]: r["score"] for r in t_row}
+        assert len(j_row) >= K // 2 and all(r["id"] in t_scores for r in j_row)
+        assert [r["id"] for r in t_row if r["id"] in {s["id"] for s in j_row}] == [r["id"] for r in j_row]
+        np.testing.assert_allclose([r["score"] for r in j_row], [t_scores[r["id"]] for r in j_row],
+                                   rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("kind", list(KINDS))
+def test_reference_loads_port_snapshot(runs, kind):
+    back, port = runs["back"][kind], runs["port"][kind]
+    _in_order_subset(back["plain"], port["plain"])
+    _in_order_subset(back["filtered"], port["filtered"])
+    assert back["vectors"] == port["vectors"]

@@ -1,5 +1,6 @@
 """Chip smoke of the PyTorch/CUDA port: dense exact-scan search at 1M x 768,
-u8 and sub-byte, then the serving stack (REST, restart, gRPC) over it.
+u8 and sub-byte, the serving stack (REST, restart, gRPC) over it, then
+sparse search at 500,000 docs and dense + sparse hybrid search.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -22,9 +23,21 @@ the context on the same data dir (snapshot + WAL replay) answering the same
 queries identically; 11 served throughput: the phase-3 u8 and the phase-6
 quaternary 1M handles mounted into collections and searched over HTTP in
 128-query requests from 8 threads; 12 the gRPC server over the u8
-collection, whose FindSimilarVectors must return REST's ids. K1 and K2
-launch counts are read around each path. Any failure exits non-zero. The
-last line is one JSON object naming the device.
+collection, whose FindSimilarVectors must return REST's ids; 13 the sparse
+inverted index at the reference's bench scale (500,000 docs x 64 pairs,
+vocab 30,000): ingest, b64/b256/b1 search through the dense-head engine,
+recall against the index's exhaustive oracle and against a brute-force
+exact score computed on the card from the raw pairs, and one timing of
+each quantized route without raw rows; 14 a collection with a dense and a
+sparse index written over REST (16,384 rows in one transaction), sparse,
+batch-sparse and batch-hybrid searches held against brute force and
+against RRF of the two legs, GET by id, a streamed delete, a restart
+answering identically and gRPC sparse search equal to REST's; 15 hybrid
+search at 100,000 docs (a u8 dense leg on K1, a sparse leg on the head
+engine) through Collection.hybrid_search_batch and /search/batch-hybrid,
+held against RRF of the legs. K1 and K2 launch counts are read around each
+path. Any failure exits non-zero. The last line is one JSON object naming
+the device.
 """
 
 from __future__ import annotations
@@ -47,7 +60,10 @@ import torch
 from cosdata_tpu_torch.config import load_config
 from cosdata_tpu_torch.core.app_context import AppContext
 from cosdata_tpu_torch.core.collection import DenseIndexHandle, tune_dense_range
+from cosdata_tpu_torch.core.fusion import rrf_fuse
 from cosdata_tpu_torch.indexes.flat import FlatIndex
+from cosdata_tpu_torch.indexes.inverted import InvertedIndex
+from cosdata_tpu_torch.ops import sparse_kernels
 from cosdata_tpu_torch.ops.kernels import subbyte_scan, u8_scan
 from cosdata_tpu_torch.ops.quantize import quantize_subbyte, quantize_u8
 
@@ -62,6 +78,12 @@ MIN_RECALL = 0.99
 #: the K1 engine), rows per upsert request, queries and queries per request
 N_REST, UPSERT_ROWS, NQ_REST, QUERY_ROWS, WORKERS = 65_536, 512, 1024, 128, 8
 ADMIN_KEY = "chip-smoke"
+#: the reference's sparse bench corpus (bench.py:537-633): docs, vocab,
+#: pairs per doc, query dims (each query is a doc's rarest dims), seed
+N_SP, VOCAB_SP, NNZ_SP, NNZ_Q, SEED_SP = 500_000, 30_000, 64, 24, 7
+#: the reference's hybrid section (bench.py:962-1070): docs, sparse seed;
+#: phase 14 serves the first N_SP_REST of its rows over REST
+N_HY, SEED_HY, N_SP_REST = 100_000, 13, 16_384
 
 
 def fail(msg: str) -> None:
@@ -607,8 +629,10 @@ def served_phase(ctx: AppContext, client: RestClient, u8_handle, q4_handle, q, t
     return {"k1": k1, "k2": k2, "ids": ids, "qr": qr}
 
 
-def grpc_phase(ctx: AppContext, served: dict, card: str) -> int:
-    """Phase 12: FindSimilarVectors on the u8 collection returns REST's ids."""
+def grpc_find(ctx: AppContext, requests: list) -> tuple[list, float]:
+    """Serve ``ctx`` over gRPC on a free local port, log in, and send each
+    FindSimilarVectorsRequest; returns each one's match ids and the seconds
+    the searches took."""
     import grpc
 
     from cosdata_tpu_torch.grpc_api import vector_service_pb2 as pb
@@ -628,24 +652,350 @@ def grpc_phase(ctx: AppContext, served: dict, card: str) -> int:
         tok = call("CreateSession", "AuthService",
                    pb.CreateSessionRequest(username="admin", password=ADMIN_KEY), pb.CreateSessionResponse).access_token
         md = [("authorization", f"Bearer {tok}")]
-        reset_counts()
         t0 = time.perf_counter()
-        got = []
-        for v in served["qr"][:8]:
-            resp = call("FindSimilarVectors", "VectorsService", pb.FindSimilarVectorsRequest(
-                collection_id="served_u8", dense=pb.FindSimilarDenseVectorsQuery(vector=v.tolist(), top_k=10),
-            ), pb.FindSimilarVectorsResponse, md)
-            got.append([int(m.id) for m in resp.matches])
-        dt = time.perf_counter() - t0
-        launches = u8_scan.u8_bin_max.launches
+        out = [[int(m.id) for m in call("FindSimilarVectors", "VectorsService", req,
+                                        pb.FindSimilarVectorsResponse, md).matches] for req in requests]
+        return out, time.perf_counter() - t0
     finally:
         channel.close()
         server.stop(0)
+
+
+def grpc_phase(ctx: AppContext, served: dict, card: str) -> int:
+    """Phase 12: FindSimilarVectors on the u8 collection returns REST's ids."""
+    from cosdata_tpu_torch.grpc_api import vector_service_pb2 as pb
+
+    reset_counts()
+    got, dt = grpc_find(ctx, [pb.FindSimilarVectorsRequest(
+        collection_id="served_u8", dense=pb.FindSimilarDenseVectorsQuery(vector=v.tolist(), top_k=10),
+    ) for v in served["qr"][:8]])
+    launches = u8_scan.u8_bin_max.launches
     want = served["ids"][:8].tolist()
     print(f"gRPC FindSimilarVectors x8: ids equal REST's {got == want}; {dt:.3f} s; "
           f"u8_bin_max launches {launches} [{card}]", flush=True)
     if got != want:
         fail(f"gRPC ids differ from REST's: {got} vs {want}")
+    return launches
+
+def sparse_corpus(n: int, seed: int) -> tuple[np.ndarray, np.ndarray]:
+    """bench.py's sparse corpus: zipf-ish dims pareto(1.2)·50 mod vocab,
+    gamma(2.0, 0.8) values; (n, NNZ_SP) each."""
+    rng = np.random.default_rng(seed)
+    dims = (rng.pareto(1.2, size=n * NNZ_SP) * 50).astype(np.int64) % VOCAB_SP
+    vals = rng.gamma(2.0, 0.8, size=n * NNZ_SP).astype(np.float32)
+    return dims.reshape(n, NNZ_SP), vals.reshape(n, NNZ_SP)
+
+
+def rare_queries(dims: np.ndarray, vals: np.ndarray, rows) -> list:
+    """Each query is a doc's NNZ_Q rarest (highest) dims with its values."""
+    out = []
+    for j in rows:
+        pick = np.argsort(dims[j])[-NNZ_Q:]
+        out.append([(int(d), float(v)) for d, v in zip(dims[j][pick], vals[j][pick])])
+    return out
+
+
+def overlap(ids, want, k: int = 10) -> float:
+    """Mean |top-k ∩ wanted top-k| / k (bench.py's recall_vs_exact)."""
+    return float(np.mean([len(set(map(int, a[:k])) & set(map(int, b[:k]))) / k for a, b in zip(ids, want)]))
+
+
+def fusion_match(ids, want) -> float:
+    """bench.py's fusion_vs_oracle: tie-tolerant set match of fused lists."""
+    return float(np.mean([len(set(map(int, a)) & set(map(int, b))) / max(int((b >= 0).sum()), 1)
+                          for a, b in zip(ids, want)]))
+
+
+class BruteSparse:
+    """Exact sparse scores on the card from the raw pairs, independent of
+    the index: Σ over a doc's pairs of max(q, 0)·max(v, 0), the query as a
+    dense vocab row gathered by the doc's dims."""
+
+    def __init__(self, dims: np.ndarray, vals: np.ndarray, dev):
+        self.dev = dev
+        self.dims = torch.as_tensor(dims, device=dev)
+        self.vals = torch.as_tensor(np.maximum(vals, 0).astype(np.float32), device=dev)
+
+    def scores(self, q) -> torch.Tensor:
+        arr = np.asarray(q, np.float64)
+        row = torch.zeros(VOCAB_SP, dtype=torch.float32, device=self.dev)
+        row.index_add_(0, torch.as_tensor(arr[:, 0].astype(np.int64), device=self.dev),
+                       torch.as_tensor(np.maximum(arr[:, 1], 0).astype(np.float32), device=self.dev))
+        return (row[self.dims] * self.vals).sum(1)
+
+    def recall(self, queries, ids, k: int = 10) -> float:
+        """Tie-tolerant recall@k: a returned id counts when its exact score
+        reaches the k-th best exact score (rtol 1e-5)."""
+        hits = 0
+        for q, row in zip(queries, ids):
+            sc = self.scores(q)
+            kth = float(torch.topk(sc, k).values[-1])
+            got = torch.as_tensor([int(i) for i in row[:k] if i >= 0], dtype=torch.int64, device=self.dev)
+            hits += int((sc[got] >= kth - 1e-5 * abs(kth)).sum())
+        return hits / (k * len(queries))
+
+
+def sparse_phase(dev, card: str) -> None:
+    """Phase 13: the sparse engine at the reference's bench scale."""
+    t0 = time.perf_counter()
+    dims, vals = sparse_corpus(N_SP, SEED_SP)
+    print(f"corpus {N_SP} docs x {NNZ_SP} pairs, vocab {VOCAB_SP}, in {time.perf_counter() - t0:.1f} s")
+    inv = InvertedIndex(dev, quantization=64, sample_threshold=256)
+    for i in range(256):
+        inv.add(i, dims[i], vals[i])
+    t0 = time.perf_counter()
+    for s in range(256, N_SP, 65536):
+        e = min(s + 65536, N_SP)
+        inv.add_batch(np.arange(s, e), dims[s:e].ravel(), vals[s:e].ravel(), np.full(e - s, NNZ_SP))
+    inv.flush()
+    ingest = (N_SP - 256) / (time.perf_counter() - t0)
+    queries = rare_queries(dims, vals, range(64))
+    t0 = time.perf_counter()
+    inv.search(queries, 10)  # the first search uploads the CSR, doc rows and head
+    print(f"ingest {ingest:.0f} docs/s (add_batch + flush, host); first search {time.perf_counter() - t0:.2f} s; "
+          f"upper bound {inv.values_upper_bound}, n_cap {inv.n_cap}, head dims {len(inv._head_didx)}", flush=True)
+    if inv.n_cap < inv.HEAD_MIN_CAP or inv._head_codes_dev is None:
+        fail("the dense-head engine did not engage")
+    tensors = {"csr ids": inv._csr_ids, "csr values": inv._csr_vals, "doc dims": inv._doc_dims_dev,
+               "doc values": inv._doc_vals_dev, "alive": inv._alive_dev, "head codes": inv._head_codes_dev}
+    off = [name for name, x in tensors.items() if x.device.type != "cuda"]
+    if off:
+        fail(f"sparse tensors off the card: {off}")
+    print("device bytes: " + ", ".join(f"{name} {x.numel() * x.element_size()}" for name, x in tensors.items()))
+    torch.cuda.reset_peak_memory_stats()
+    t64, (ids, _) = timed_search(lambda: inv.search(queries, 10), reps=3)
+    t256, (ids4, _) = timed_search(lambda: inv.search(queries * 4, 10), reps=3)
+    peak = torch.cuda.max_memory_allocated()
+    saved = inv.SCAN_BUDGET
+    inv.SCAN_BUDGET, inv.EXHAUSTIVE = 1 << 30, True  # the oracle: every tail posting rescored
+    t_ex = time.perf_counter()
+    ids_ex, _ = inv.search(queries, 10)
+    t_ex = time.perf_counter() - t_ex
+    inv.SCAN_BUDGET, inv.EXHAUSTIVE = saved, False
+    brute = BruteSparse(dims, vals, dev)
+    rec_ex = overlap(ids, ids_ex)
+    rec_brute = brute.recall(queries, ids)
+    rec_ex_brute = brute.recall(queries, ids_ex)
+    self_hit = float(np.mean([j in set(map(int, ids[j])) for j in range(64)]))
+    inv.search([queries[0]], 10)  # warm the single-query shapes
+    ids1, lat1 = [], []
+    for q1 in queries[:8]:
+        t0 = time.perf_counter()
+        ids1.append(inv.search([q1], 10)[0][0])
+        lat1.append(time.perf_counter() - t0)
+    rec1 = overlap(ids1, ids_ex[:8])
+    print(f"sparse {N_SP} docs: b64 {t64 * 1e3:.2f} ms = {64 / t64:.1f} qps, b256 {t256 * 1e3:.2f} ms = "
+          f"{256 / t256:.1f} qps, b1 median {statistics.median(lat1) * 1e3:.2f} ms; peak allocated "
+          f"{peak} B [{card}]", flush=True)
+    print(f"recall_vs_exact {rec_ex:.4f} (exhaustive oracle, {t_ex:.2f} s), {rec_brute:.4f} (brute-force score; "
+          f"the oracle itself {rec_ex_brute:.4f}), b1 {rec1:.4f}; b256 rows equal b64's "
+          f"{bool((ids4[:64] == ids).all())}; self_recall {self_hit:.3f}", flush=True)
+    for name, r in (("recall_vs_exact", rec_ex), ("recall against brute force", rec_brute), ("b1 recall", rec1)):
+        if r < MIN_RECALL:
+            fail(f"sparse {name} {r:.4f} < {MIN_RECALL}")
+
+    # keep_raw=False: the two quantized-score routes on the same segments
+    raw_less = InvertedIndex(dev, quantization=64, values_upper_bound=inv.values_upper_bound, keep_raw=False)
+    del inv
+    torch.cuda.empty_cache()
+    raw_less.add_batch(np.arange(N_SP), dims.ravel(), vals.ravel(), np.full(N_SP, NNZ_SP))
+    raw_less.flush()
+    t_route, (ids_q, _) = timed_search(lambda: raw_less.search(queries, 10), reps=3)
+    # a width the router sends to the segment route (at most 65,536 slots)
+    starts, lens, mults = raw_less._segments_batch(queries, 16384)
+    args = (*(torch.as_tensor(a, device=dev) for a in (starts, lens, mults)), raw_less._csr_ids,
+            raw_less._csr_vals, raw_less._alive_dev)
+    seg = sparse_kernels.csr_segment_topk(*args, 10, raw_less.SEGCAP, aligned=True)
+    sca = sparse_kernels.csr_accumulate_topk(*args, raw_less.n_cap, 10, raw_less.SEGCAP, aligned=True)
+    ms_seg = cuda_ms(lambda: sparse_kernels.csr_segment_topk(*args, 10, raw_less.SEGCAP, aligned=True), 3)
+    ms_sca = cuda_ms(lambda: sparse_kernels.csr_accumulate_topk(*args, raw_less.n_cap, 10, raw_less.SEGCAP,
+                                                                aligned=True), 3)
+    width = starts.shape[1] * raw_less.SEGCAP
+    print(f"keep_raw=False b64, {width} gathered slots per query: segment route {ms_seg:.3f} ms, scatter route "
+          f"{ms_sca:.3f} ms (device, not gated), max score difference {float((seg[0] - sca[0]).abs().max()):.3g}; "
+          f"search() at the default budget {t_route * 1e3:.2f} ms, quantized recall_vs_exact "
+          f"{overlap(ids_q, ids_ex):.4f} [{card}]",
+          flush=True)
+    del raw_less, args, seg, sca, brute
+    torch.cuda.empty_cache()
+
+
+def sparse_rest_phase(data_dir: str, x_hy: np.ndarray, q_rest: np.ndarray, hy_dims, hy_vals, dev,
+                      card: str) -> dict:
+    """Phase 14: dense + sparse written over REST, sparse and hybrid
+    searched, read back, deleted, then the restart and gRPC; returns K1's
+    launches over the phase."""
+    n = N_SP_REST
+    dims, vals = hy_dims[:n], np.round(hy_vals[:n].astype(np.float64), 6)
+    ctx = AppContext(load_config(data_path=data_dir), admin_key=ADMIN_KEY, device=dev)
+    server = RestServer(ctx)
+    client = RestClient(server.port)
+    client.login()
+    c = "/vectordb/collections/hyrest"
+    client.ok("POST", "/vectordb/collections", {
+        "name": "hyrest", "dense_vector": {"enabled": True, "dimension": DIM}, "sparse_vector": {"enabled": True},
+    })
+    client.ok("POST", c + "/indexes/dense", {"name": "hyrest_dense", "distance_metric_type": "cosine",
+                                             "quantization": {"type": "auto"}})
+    client.ok("POST", c + "/indexes/sparse", {"name": "hyrest_sparse", "quantization": 64, "sample_threshold": 256})
+    rows = x_hy.tolist()
+    pairs = [[[int(d), float(v)] for d, v in zip(dims[i], vals[i])] for i in range(n)]
+    t0 = time.perf_counter()
+    txn = client.ok("POST", c + "/transactions", {})["transaction_id"]
+    for s in range(0, n, UPSERT_ROWS):
+        client.ok("POST", f"{c}/transactions/{txn}/upsert", {"vectors": [
+            {"id": i, "dense_values": rows[i], "sparse_values": pairs[i]} for i in range(s, s + UPSERT_ROWS)
+        ]})
+    client.ok("POST", f"{c}/transactions/{txn}/commit", {})
+    while (st := client.ok("GET", f"{c}/transactions/{txn}/status"))["status"] != "complete":
+        if time.perf_counter() - t0 > 600:
+            fail(f"the transaction did not complete: {st}")
+        time.sleep(0.2)
+    print(f"REST ingest of {n} x ({DIM} dense + {NNZ_SP} sparse pairs) in {n // UPSERT_ROWS} requests: "
+          f"{time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+    queries = rare_queries(dims, vals, range(64))
+    hybrid = [{"query_vector": q_rest[j].tolist(), "query_terms": queries[j]} for j in range(64)]
+    reset_counts()
+
+    def answers(cl) -> dict:
+        out = cl.ok("POST", c + "/search/batch-sparse", {"query_terms_list": queries, "top_k": 10})
+        sp = rows_of([r["results"] for r in out["responses"]])
+        out = cl.ok("POST", c + "/search/batch-hybrid", {"queries": hybrid, "top_k": 10})
+        hy = rows_of([r["results"] for r in out["responses"]])
+        one = rows_of([cl.ok("POST", c + "/search/sparse", {"query_terms": q, "top_k": 10})["results"]
+                       for q in queries[:8]])
+        return {"sparse": sp, "hybrid": hy, "one": one}
+
+    first = answers(client)
+    brute = BruteSparse(dims, vals, dev)
+    rec = brute.recall(queries, first["sparse"][0])
+    rec1 = brute.recall(queries[:8], first["one"][0])
+    coll = ctx.get_collection("hyrest")
+    d_ids, _ = coll.dense.search(np.asarray(q_rest[:64], np.float32), 30)
+    s_ids, _ = coll.sparse.search(queries, top_k=30)
+    fuse = fusion_match(first["hybrid"][0], rrf_fuse([d_ids, s_ids], 10, 30)[0])
+    probe = n // 2 + 1
+    rec_get = client.ok("GET", f"{c}/vectors/{probe}")
+    got = sorted((int(d), float(v)) for d, v in rec_get["sparse_values"])
+    want = sorted(zip(dims[probe].tolist(), vals[probe].tolist()))
+    get_err = max(abs(a[1] - b[1]) for a, b in zip(got, want)) if len(got) == len(want) else float("inf")
+    if [a[0] for a in got] != [b[0] for b in want] or get_err > 1e-6:
+        fail(f"GET /vectors/{probe}: sparse_values differ from the written pairs (max value error {get_err})")
+    victim = int(first["one"][0][0, 0])
+    client.ok("DELETE", f"{c}/streaming/vectors/{victim}")
+    res = client.ok("POST", c + "/search/sparse", {"query_terms": queries[0], "top_k": 10})["results"]
+    if victim in [r["id"] for r in res]:
+        fail(f"streamed delete of {victim}: it came back for its own terms")
+    before = answers(client)
+    print(f"sparse recall@10 against brute force: /batch-sparse (64) {rec:.4f}, /sparse (8 single) {rec1:.4f}; "
+          f"/batch-hybrid ids = RRF of the legs {fuse:.4f}; GET /vectors/{probe}: sparse max value error "
+          f"{get_err:.3g}; streamed delete of {victim}: ok [{card}]", flush=True)
+    for name, r in (("/batch-sparse recall", rec), ("/sparse recall", rec1), ("hybrid fusion match", fuse)):
+        if r < MIN_RECALL:
+            fail(f"phase 14 {name} {r:.4f} < {MIN_RECALL}")
+    client.close()
+    server.close()
+    ctx.close()
+
+    t0 = time.perf_counter()
+    ctx = AppContext(load_config(data_path=data_dir), admin_key=ADMIN_KEY, device=dev)
+    t_load = time.perf_counter() - t0
+    server = RestServer(ctx)
+    client = RestClient(server.port)
+    client.login()
+    after = answers(client)
+    same = {k: bool((after[k][0] == before[k][0]).all() and (after[k][1] == before[k][1]).all()) for k in after}
+    status, _ = client.call("GET", f"{c}/vectors/{victim}")
+    from cosdata_tpu_torch.grpc_api import vector_service_pb2 as pb
+
+    grpc_ids, _ = grpc_find(ctx, [pb.FindSimilarVectorsRequest(
+        collection_id="hyrest",
+        sparse=pb.FindSimilarSparseVectorsQuery(values=[pb.SparsePair(index=d, value=v) for d, v in q], top_k=10),
+    ) for q in queries[:8]])
+    launches = u8_scan.u8_bin_max.launches
+    grpc_same = grpc_ids == [[int(i) for i in row if i >= 0] for row in after["one"][0]]
+    print(f"after restart ({t_load:.1f} s): identical ids and scores {same}; deleted {victim} answers HTTP {status}; "
+          f"gRPC FindSimilarVectors (sparse) x8: ids equal REST's {grpc_same}; u8_bin_max launches in phase 14: "
+          f"{launches} (dense capacity {N_SP_REST}, below one scan chunk: the reference's plain scan) [{card}]",
+          flush=True)
+    client.close()
+    server.close()
+    ctx.close()
+    if not all(same.values()):
+        fail("the restarted context answered sparse or hybrid queries differently")
+    if status != 404:
+        fail(f"the deleted vector came back after the restart (HTTP {status})")
+    if not grpc_same:
+        fail(f"gRPC sparse ids differ from REST's: {grpc_ids} vs {after['one'][0]}")
+    return {"launches": launches}
+
+
+def hybrid_phase(x, q, hy_dims, hy_vals, dev, card: str) -> int:
+    """Phase 15: hybrid served at 100,000 (bench.py:962-1070); returns K1's launches."""
+    dims, vals = hy_dims[:N_HY], hy_vals[:N_HY]
+    with tempfile.TemporaryDirectory(prefix="cosdata_smoke_") as data_dir:
+        ctx = AppContext(load_config(data_path=data_dir), admin_key=ADMIN_KEY, device=dev)
+        coll = ctx.create_collection({"name": "hybench", "dense_vector": {"enabled": True, "dimension": DIM},
+                                      "sparse_vector": {"enabled": True}})
+        lo, hi = tune_dense_range(x[:1000].cpu().numpy())
+        coll.create_dense_index(quantization={"type": "scalar", "data_type": "u8", "range": {"min": lo, "max": hi}},
+                                raw_storage="device")
+        t0 = time.perf_counter()
+        for s in range(0, N_HY, ADD_BATCH):
+            e = min(s + ADD_BATCH, N_HY)
+            coll.dense.add_batch(list(range(s, e)), x[s:e])
+        coll.create_sparse_index(quantization=64, sample_threshold=256)
+        for i in range(256):
+            coll.sparse.add(i, dims[i], vals[i])
+        coll.sparse.add_batch(np.arange(256, N_HY), dims[256:].ravel(), vals[256:].ravel(),
+                              np.full(N_HY - 256, NNZ_SP))
+        coll.sparse.flush()
+        coll.raw = {i: {"id": i, "document_id": None} for i in range(N_HY)}
+        print(f"ingest (engine API) {time.perf_counter() - t0:.1f} s; dense capacity {coll.dense.index.cap}",
+              flush=True)
+        hq_dense = np.concatenate([q[:64].cpu().numpy()] * 4)
+        hq_sparse = rare_queries(dims, vals, [j % 64 for j in range(256)])
+        queries = [{"query_vector": hq_dense[j], "query_terms": hq_sparse[j]} for j in range(256)]
+        reset_counts()
+        t_hy, res = timed_search(lambda: coll.hybrid_search_batch(queries, top_k=10), reps=3)
+        fused, _ = rows_of(res)
+        server = RestServer(ctx)
+        client = RestClient(server.port)
+        client.login()
+        same_direct, lat = [], []
+        http_ids = []
+        for s in range(0, 256, 64):
+            part = queries[s : s + 64]
+            direct, _ = rows_of(coll.hybrid_search_batch(part, top_k=10))
+            t0 = time.perf_counter()
+            out = client.ok("POST", "/vectordb/collections/hybench/search/batch-hybrid", {"queries": [
+                {"query_vector": p["query_vector"].tolist(), "query_terms": p["query_terms"]} for p in part
+            ], "top_k": 10})
+            lat.append(time.perf_counter() - t0)
+            ids, _ = rows_of([r["results"] for r in out["responses"]])
+            http_ids.append(ids)
+            same_direct.append(bool((ids == direct).all()))
+        launches = u8_scan.u8_bin_max.launches
+        # the oracle: RRF of the two legs' own searches, outside the count
+        d_ids, _ = coll.dense.search(hq_dense, 30)
+        s_ids, _ = coll.sparse.search(hq_sparse, top_k=30)
+        fuse = fusion_match(fused, rrf_fuse([d_ids, s_ids], 10, 30)[0])
+        self_hit = float(np.mean([(j % 64) in set(map(int, fused[j])) for j in range(256)]))
+        http_ids = np.concatenate(http_ids)
+        print(f"hybrid {N_HY} docs, Collection.hybrid_search_batch b256: {t_hy * 1e3:.2f} ms = {256 / t_hy:.1f} qps; "
+              f"fusion_vs_oracle {fuse:.4f}; self_recall {self_hit:.3f}; /batch-hybrid 4 requests of 64: median "
+              f"{statistics.median(lat) * 1e3:.1f} ms = {256 / sum(lat):.1f} qps, ids equal the direct calls' "
+              f"{same_direct}, equal the b256 call's {bool((http_ids == fused).all())}; u8_bin_max launches "
+              f"{launches} [{card}]", flush=True)
+        client.close()
+        server.close()
+        ctx.close()
+    if fuse < MIN_RECALL:
+        fail(f"hybrid fusion_vs_oracle {fuse:.4f} < {MIN_RECALL}")
+    if not all(same_direct):
+        fail("/batch-hybrid ids differ from the direct hybrid_search_batch calls'")
+    if launches == 0:
+        fail("the hybrid dense leg never launched u8_bin_max")
     return launches
 
 
@@ -661,7 +1011,8 @@ def main() -> None:
     nvcc = subprocess.run(["/usr/local/cuda/bin/nvcc", "--version"], capture_output=True, text=True)
     print(f"torch {torch.__version__}, cuda {torch.version.cuda}, nvcc: {nvcc.stdout.strip().splitlines()[-1]}")
     print(f"device: {torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
-    for mod in ("aiohttp", "msgpack", "grpc"):
+    # xxhash and nltk: the reference's BM25 text pipeline (not ported yet)
+    for mod in ("aiohttp", "msgpack", "grpc", "xxhash", "nltk"):
         print(f"package {mod}: {'present' if importlib.util.find_spec(mod) else 'absent'}")
 
     phase("1 build u8_bin_max and subbyte_code_scores")
@@ -709,6 +1060,7 @@ def main() -> None:
         rest = rest_phase(data_dir, x_rest, q_rest, truth_rest, dev, card)
         phase("10 restart on the same data dir")
         k1_restart = restart_phase(data_dir, q_rest, rest, dev, card)
+    x_hy = x_rest[:N_SP_REST]
     del x_rest
 
     phase(f"11 served throughput at {N} x {DIM}")
@@ -729,6 +1081,18 @@ def main() -> None:
             fail(f"phase {name} never launched its kernel")
     launches += rest["launches"] + k1_restart + served["k1"] + k1_grpc
     k2_launches += served["k2"]
+
+    phase(f"13 sparse engine at {N_SP} docs")
+    sparse_phase(dev, card)
+
+    phase(f"14 sparse and hybrid over REST and gRPC at {N_SP_REST} rows")
+    hy_dims, hy_vals = sparse_corpus(N_HY, SEED_HY)
+    with tempfile.TemporaryDirectory(prefix="cosdata_smoke_") as data_dir:
+        k1_hy_rest = sparse_rest_phase(data_dir, x_hy, q_rest, hy_dims, hy_vals, dev, card)["launches"]
+
+    phase(f"15 hybrid served at {N_HY} docs")
+    k1_hybrid = hybrid_phase(x, q, hy_dims, hy_vals, dev, card)
+    launches += k1_hy_rest + k1_hybrid
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
     print(card)

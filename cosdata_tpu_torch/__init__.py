@@ -1,7 +1,8 @@
 """PyTorch/CUDA port of cosdata_tpu: dense exact-scan search (u8, sub-byte,
-f16, f32) and the serving stack above it (collections, transactions, WAL,
-versions, snapshots, the REST and gRPC servers; ``python -m
-cosdata_tpu_torch --device cuda --admin-key KEY``).
+f16, f32), sparse (SPLADE-style) inverted-index search, dense + sparse
+hybrid search by reciprocal-rank fusion, and the serving stack above them
+(collections, transactions, WAL, versions, snapshots, the REST and gRPC
+servers; ``python -m cosdata_tpu_torch --device cuda --admin-key KEY``).
 
 Module names mirror ``cosdata_tpu`` so each counterpart is easy to find.
 The package imports torch and numpy only, never jax and never

@@ -27,8 +27,9 @@ same role, web_server.rs:48).
 Port of ``cosdata_tpu/api/server.py``. Changed from the reference: a route
 this port does not serve yet raises ``NotImplementedError``, which answers
 501 with the message naming its ROADMAP item (the reference's middleware
-would map it, a ``RuntimeError``, to 409 Conflict); the sparse, tf-idf and
-hybrid searches and the graph's ``/neighbors`` are such routes.
+would map it, a ``RuntimeError``, to 409 Conflict); the tf-idf (BM25)
+index and searches, a hybrid query with a ``query_text`` leg and the
+graph's ``/neighbors`` are such routes.
 """
 
 from __future__ import annotations
@@ -389,6 +390,8 @@ class Server:
     async def search_sparse(self, request):
         body = await request.json()
         coll = await self._coll_at_version(request, body)
+        if coll.sparse is None:
+            raise KeyError("sparse index not found")
         results = await _run(
             request,
             coll.search_sparse,
@@ -404,6 +407,8 @@ class Server:
     async def search_batch_sparse(self, request):
         body = await request.json()
         coll = await self._coll(request)
+        if coll.sparse is None:
+            raise KeyError("sparse index not found")
         queries = [[tuple(p) for p in q] for q in body["query_terms_list"]]
         results = await _run(
             request,

@@ -6,9 +6,9 @@ metadata store, the collections map, the admin-key verification (double
 SHA-256) and the indexing manager.
 
 Port of ``cosdata_tpu/core/app_context.py``. Changed from the reference:
-the context takes the ``device`` every collection's index lives on; a
-stored collection that holds a not-ported index (sparse, tf-idf) is not
-loaded with that index dropped: it stays out of ``collections`` and
+the context takes the ``device`` every collection's indexes live on; a
+stored collection that holds a not-ported index (tf-idf) is not loaded
+with that index dropped: it stays out of ``collections`` and
 ``get_collection`` raises ``NotImplementedError`` with the reason (HTTP
 501); ``close()`` stops the epoch timer and drains background indexing.
 """

@@ -2,15 +2,17 @@
 
 ``Collection`` owns a collection's id maps, slim per-vector records,
 transactions (explicit, WAL-buffered and indexed in the background;
-implicit, streamed and indexed inline), versions and snapshots, and its
-dense index. ``DenseIndexHandle`` sits below it: every REST and gRPC dense
-search ends in its ``search``. It keeps the sample-then-configure protocol
-(quantization "auto" buffers ``sample_threshold`` rows, tunes the u8 range
-on them, then builds), the engine routing and flush-time compaction. u8,
-sub-byte (binary, quaternary, octal), f16 and f32 storage with cosine or
-dot are ported; every route that needs the graph, and the sparse, tf-idf
-and hybrid paths, raise ``NotImplementedError`` naming their ROADMAP item.
-Every tensor lives on the ``device`` the collection was given.
+implicit, streamed and indexed inline), versions and snapshots, its dense
+index and its sparse inverted index, and hybrid (dense + sparse)
+reciprocal-rank fusion. ``DenseIndexHandle`` sits below it: every REST and
+gRPC dense search ends in its ``search``. It keeps the sample-then-configure
+protocol (quantization "auto" buffers ``sample_threshold`` rows, tunes the
+u8 range on them, then builds), the engine routing and flush-time
+compaction. u8, sub-byte (binary, quaternary, octal), f16 and f32 storage
+with cosine or dot are ported; every route that needs the graph, and the
+tf-idf (BM25) index, its search and a hybrid query's text leg, raise
+``NotImplementedError`` naming their ROADMAP item. Every tensor lives on
+the ``device`` the collection was given.
 """
 
 from __future__ import annotations
@@ -28,15 +30,16 @@ from cosdata_tpu_torch.core.transaction import (
     TransactionStatus,
 )
 from cosdata_tpu_torch.indexes.hnsw import HNSWIndex, HNSWParams
+from cosdata_tpu_torch.indexes.inverted import InvertedIndex
 from cosdata_tpu_torch.ops.storage import SUBBYTE_ALIAS
 from cosdata_tpu_torch.store.meta import MetaStore
 from cosdata_tpu_torch.store.versioning import VersionControl
 from cosdata_tpu_torch.store.wal import OP_DELETE, OP_UPSERT, read_wal
 
-#: the answer of every sparse, tf-idf and hybrid route
-SPARSE_NOT_PORTED = (
-    "sparse, tf-idf (BM25) and hybrid search are not ported yet "
-    "(ROADMAP queue 1: sparse, BM25 and hybrid)"
+#: the answer of every tf-idf route and of a hybrid query's text leg
+BM25_NOT_PORTED = (
+    "tf-idf (BM25) indexes and search, and the hybrid query_text leg, are "
+    "not ported yet (ROADMAP queue 1: BM25 and the text leg)"
 )
 
 
@@ -350,6 +353,8 @@ class Collection:
         self._map_log: list = []
 
         self.dense: DenseIndexHandle | None = None
+        self.sparse: InvertedIndex | None = None
+        self.sparse_descriptor: dict | None = None
 
         # transactions
         self.current_explicit: ExplicitTransaction | None = None
@@ -381,15 +386,42 @@ class Collection:
             self._persist_descriptors()
             return self.dense.descriptor
 
-    def create_sparse_index(self, *args, **kwargs):
-        if not self.sparse_vector.get("enabled"):
-            raise ValueError("sparse vectors not enabled for this collection")
-        raise NotImplementedError(SPARSE_NOT_PORTED)
+    def create_sparse_index(self, quantization: int = 64, sample_threshold: int = 1000,
+                            early_terminate_threshold: float = 0.0,
+                            scan_budget: int | None = None,
+                            scan_budget_total: int | None = None):
+        """``scan_budget``/``scan_budget_total`` pin the posting-scan
+        budgets per collection (pinning both to the same value makes served
+        quality independent of dispatch batch size)."""
+        with self.lock:
+            if not self.sparse_vector.get("enabled"):
+                raise ValueError("sparse vectors not enabled for this collection")
+            if self.sparse is not None:
+                raise ValueError("sparse index already exists")
+            self.sparse = InvertedIndex(
+                self.device,
+                quantization=quantization,
+                sample_threshold=sample_threshold,
+                early_terminate_threshold=early_terminate_threshold,
+                scan_budget=scan_budget,
+                scan_budget_total=scan_budget_total,
+            )
+            self.sparse_descriptor = {
+                "index_type": "sparse",
+                "quantization": quantization,
+                "sample_threshold": sample_threshold,
+            }
+            if scan_budget is not None:
+                self.sparse_descriptor["scan_budget"] = int(scan_budget)
+            if scan_budget_total is not None:
+                self.sparse_descriptor["scan_budget_total"] = int(scan_budget_total)
+            self._persist_descriptors()
+            return self.sparse_descriptor
 
     def create_tf_idf_index(self, *args, **kwargs):
         if not self.tf_idf_options.get("enabled"):
             raise ValueError("tf-idf not enabled for this collection")
-        raise NotImplementedError(SPARSE_NOT_PORTED)
+        raise NotImplementedError(BM25_NOT_PORTED)
 
     def _persist_descriptors(self):
         """Persist index configs (IndexOps::persist parity). No-op while
@@ -402,12 +434,20 @@ class Collection:
         with self.lock:
             if index_type == "dense":
                 self.dense = None
-            elif index_type not in ("sparse", "tf-idf"):
+            elif index_type == "sparse":
+                self.sparse = None
+                self.sparse_descriptor = None  # else list/restart resurrect it
+            elif index_type != "tf-idf":
                 raise ValueError(f"unknown index type {index_type}")
             self._persist_descriptors()
 
     def list_indexes(self) -> list[dict]:
-        return [self.dense.descriptor] if self.dense else []
+        out = []
+        if self.dense:
+            out.append(self.dense.descriptor)
+        if self.sparse_descriptor:
+            out.append(self.sparse_descriptor)
+        return out
 
     # ------------------------------------------------------- validation
 
@@ -613,6 +653,10 @@ class Collection:
                         else None
                     )
                     dense_batch.append((iid, v["dense_values"], mids))
+                sp = v.get("sparse_values")
+                if sp is not None and self.sparse is not None:
+                    pairs = np.asarray(sp, np.float32).reshape(-1, 2)
+                    self.sparse.add(iid, pairs[:, 0].astype(np.int64), pairs[:, 1])
             if dense_batch:
                 ids = [i for i, _, _ in dense_batch]
                 arr = np.asarray([d for _, d, _ in dense_batch], np.float32)
@@ -634,11 +678,15 @@ class Collection:
                     lst.remove(iid)
             if self.dense is not None:
                 self.dense.delete(iid)
+            if self.sparse is not None:
+                self.sparse.delete(iid)
 
     def flush_indexes(self):
         with self.lock, self._engine_dispatch_lock:
             if self.dense is not None:
                 self.dense.flush()
+            if self.sparse is not None:
+                self.sparse.flush()
 
     def save_snapshot(self):
         from cosdata_tpu_torch.store.snapshots import save_collection_state
@@ -769,25 +817,130 @@ class Collection:
                     self.__dict__[attr] = batcher
         return batcher
 
-    def search_sparse(self, *args, **kwargs):
-        raise NotImplementedError(SPARSE_NOT_PORTED)
+    def _sparse_ids(self, query_terms_list, top_k, early_terminate_threshold=None):
+        """Internal (ids, scores) of the sparse engine leg.
+
+        rerank_sparse_with_raw_values / reranking factor (config.toml:5-6)
+        are re-read per call."""
+
+        def run(qs, k):
+            return self.sparse.search(
+                qs, top_k=k,
+                rerank=bool(getattr(self.app_config, "rerank_sparse_with_raw_values", False)),
+                rerank_factor=int(getattr(self.app_config, "sparse_raw_values_reranking_factor", 5)),
+            )
+
+        if early_terminate_threshold is not None:
+            # per-request override (dtos.rs:44): mutates engine state, so
+            # hold the shared dispatch lock — coalesced batches in flight
+            # must not observe another request's threshold
+            with self._engine_dispatch_lock:
+                old = self.sparse.early_terminate_threshold
+                self.sparse.early_terminate_threshold = early_terminate_threshold
+                try:
+                    return run(query_terms_list, top_k)
+                finally:
+                    self.sparse.early_terminate_threshold = old
+        return self._batcher("_sparse_batcher", run).search(list(query_terms_list), top_k)
+
+    def search_sparse(self, query_terms_list, top_k=10, early_terminate_threshold=None,
+                      return_raw_text=False):
+        ids, scores = self._sparse_ids(query_terms_list, top_k, early_terminate_threshold)
+        return self._format_results(ids, scores, return_raw_text)
 
     def search_tfidf(self, *args, **kwargs):
-        raise NotImplementedError(SPARSE_NOT_PORTED)
+        raise NotImplementedError(BM25_NOT_PORTED)
 
-    def hybrid_search(self, *args, **kwargs):
-        raise NotImplementedError(SPARSE_NOT_PORTED)
+    def hybrid_search(self, query: dict, top_k=10, fusion_constant_k=60.0, return_raw_text=False):
+        """RRF fusion of two legs, each fetching 3*top_k
+        (search/repo.rs:168-341)."""
+        return self.hybrid_search_batch([query], top_k, fusion_constant_k, return_raw_text)[0]
 
-    def hybrid_search_batch(self, *args, **kwargs):
-        raise NotImplementedError(SPARSE_NOT_PORTED)
+    @property
+    def _hybrid_pool(self):
+        """Shared leg-runner pool (one per collection, built lazily): the
+        leg groups of a hybrid batch run concurrently, so one leg's host
+        work overlaps the other's device work."""
+        pool = self.__dict__.get("_hybrid_executor")
+        if pool is None:
+            import concurrent.futures as _futures
+
+            with self.lock:
+                pool = self.__dict__.get("_hybrid_executor")
+                if pool is None:
+                    pool = _futures.ThreadPoolExecutor(3, thread_name_prefix="hybrid-leg")
+                    self.__dict__["_hybrid_executor"] = pool
+        return pool
+
+    def hybrid_search_batch(self, queries, top_k=10, fusion_constant_k=60.0, return_raw_text=False):
+        """Batched hybrid: legs are regrouped across queries (all dense
+        sub-queries in one engine call, the sparse ones by early-termination
+        threshold; search/repo.rs:343-555) and fused by the vectorized RRF
+        (core/fusion.py). Returns one result list per query. A query_text
+        leg raises ``NotImplementedError`` (BM25 is not ported)."""
+        from cosdata_tpu_torch.core.fusion import rrf_fuse
+
+        fetch = top_k * 3
+        b = len(queries)
+        dense_q, dense_slots = [], []
+        sparse_groups: dict = {}  # threshold -> (queries, slots)
+        for i, query in enumerate(queries):
+            keys = [kk for kk in ("query_vector", "query_terms", "query_text") if kk in query]
+            if len(keys) != 2:
+                raise ValueError("hybrid query must combine two of query_vector/query_terms/query_text")
+            if "query_text" in keys:
+                raise NotImplementedError(BM25_NOT_PORTED)
+            for leg_no, kk in enumerate(keys):
+                if kk == "query_vector":
+                    dense_q.append(query["query_vector"])
+                    dense_slots.append((i, leg_no))
+                else:
+                    thr = query.get("sparse_early_terminate_threshold")
+                    g = sparse_groups.setdefault(thr, ([], []))
+                    g[0].append(query["query_terms"])
+                    g[1].append((i, leg_no))
+        jobs = []
+        if dense_q:
+            jobs.append(("dense", dense_q, dense_slots, None))
+        for thr, (qs, slots) in sparse_groups.items():
+            jobs.append(("sparse", qs, slots, thr))
+
+        def run_leg(job):
+            kind, qs, slots, thr = job
+            if kind == "dense":
+                ids, _ = self._batcher(
+                    "_dense_batcher", lambda q, k: self.dense.search(q, k)
+                ).search(np.asarray(qs, np.float32), fetch)
+            else:
+                ids, _ = self._sparse_ids(qs, fetch, thr)
+            return np.asarray(ids, np.int64), slots
+
+        if not jobs:  # empty batch: nothing to fuse
+            return []
+        if len(jobs) > 1:
+            results = list(self._hybrid_pool.map(run_leg, jobs))
+        else:
+            results = [run_leg(jobs[0])]
+        leg_a = np.full((b, fetch), -1, np.int64)
+        leg_b = np.full((b, fetch), -1, np.int64)
+        for ids, slots in results:
+            w = min(fetch, ids.shape[1])
+            rows = np.fromiter((s[0] for s in slots), np.int64, len(slots))
+            legno = np.fromiter((s[1] for s in slots), np.int64, len(slots))
+            for leg_no, dst in ((0, leg_a), (1, leg_b)):
+                sel = legno == leg_no
+                if sel.any():
+                    dst[rows[sel], :w] = ids[sel, :w]
+        fused_ids, fused_sc = rrf_fuse([leg_a, leg_b], top_k, fetch, float(fusion_constant_k))
+        return self._format_results(fused_ids, fused_sc, return_raw_text)
 
     # ------------------------------------------------- version-context query
 
     def restore_indexes_from_meta(self) -> None:
         """Recreate index handles from the persisted descriptors
-        (IndexOps::load_data role, indexes/mod.rs:176-213). A sparse or
-        tf-idf descriptor raises ``NotImplementedError``: the collection
-        cannot be served without that index."""
+        (IndexOps::load_data role, indexes/mod.rs:176-213). A tf-idf
+        descriptor raises ``NotImplementedError``: the collection cannot be
+        served without that index."""
         self._restoring = True
         try:
             self._restore_indexes_inner()
@@ -806,8 +959,13 @@ class Collection:
                         raw_storage=desc.get("raw_storage", "device"),
                         shards=desc.get("shards", 1),
                     )
-                elif t == "sparse":
-                    self.create_sparse_index()
+                elif t == "sparse" and self.sparse is None:
+                    self.create_sparse_index(
+                        quantization=desc.get("quantization", 64),
+                        sample_threshold=desc.get("sample_threshold", 1000),
+                        scan_budget=desc.get("scan_budget"),
+                        scan_budget_total=desc.get("scan_budget_total"),
+                    )
                 elif t == "tf_idf":
                     self.create_tf_idf_index()
             except ValueError:
@@ -878,7 +1036,8 @@ class Collection:
 
     def _full_record(self, iid: int) -> dict | None:
         """The full vector record: slim host fields + the dense values
-        gathered back from the store's raw rows (vectors/repo.rs contract)."""
+        gathered back from the store's raw rows and the sparse pairs from
+        the inverted index (vectors/repo.rs contract)."""
         rec = self.raw.get(iid)
         if rec is None:
             return None
@@ -890,6 +1049,10 @@ class Collection:
             if row is not None:
                 vals = d.index.store.raw_rows([row])[0].cpu().numpy()
                 out["dense_values"] = [float(x) for x in vals]
+        if self.sparse is not None:
+            pairs = self.sparse.raw_pairs(iid)
+            if pairs is not None:
+                out["sparse_values"] = pairs
         return out
 
     # ---------------------------------------------------------------- info

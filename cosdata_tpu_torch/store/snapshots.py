@@ -1,10 +1,10 @@
-"""Versioned snapshot persistence for collections and their dense index.
+"""Versioned snapshot persistence for collections and their indexes.
 
 Port of ``cosdata_tpu/store/snapshots.py``: the id maps (``maps.msgpack`` +
-``maps.log``, copied) and the dense part, in torch. A checkpoint is an
-atomic .npz + msgpack snapshot plus chunked row arrays, written at flush
-points (txn indexing / epoch close); crash recovery between snapshots is
-WAL replay.
+``maps.log``, copied), the dense part in torch and the sparse part. A
+checkpoint is an atomic .npz + msgpack snapshot plus chunked row arrays,
+written at flush points (txn indexing / epoch close); crash recovery
+between snapshots is WAL replay.
 
 The on-disk layout is the reference's, so the two packages read each
 other's snapshots:
@@ -16,9 +16,15 @@ other's snapshots:
   files, which the reference's loader accepts; on load it skips the
   reference's graph arrays (``adj0``, ``adj0_d``, ``up_adj``, ``up_d``).
 
+- the sparse index: ``sparse.npz`` (``alive``, ``has_doc``, ``raw_nnz``),
+  the chunked host CSR (``sp_keys``, ``sp_ids``, ``sp_buckets``) and raw
+  rows (``sp_raw_dims``, ``sp_raw_vals``), and ``sparse.msgpack`` written
+  last; the device CSR, doc rows and head matrix are rebuilt from them at
+  the first search.
+
 Not ported (each raises ``NotImplementedError`` naming its ROADMAP item):
-sharded dense snapshots, codes spilled to the host, and the sparse and
-tf-idf parts (a collection holding those indexes never reaches here).
+sharded dense snapshots, codes spilled to the host, and the tf-idf part (a
+collection holding a tf-idf index never reaches here).
 """
 
 from __future__ import annotations
@@ -224,6 +230,67 @@ def save_collection_state(coll, snap_dir: str | Path, archive: bool = False) -> 
     d = coll.dense
     if d is not None and d.index is not None:
         _save_dense(d.index, snap_dir, list(d.range), d.params.num_layers)
+    if coll.sparse is not None:
+        _save_sparse(coll.sparse, snap_dir)
+
+
+def _save_sparse(s, snap_dir: Path) -> None:
+    """Persist the inverted index's host state in the reference's layout."""
+    s._fold_pending()
+    data = {
+        "bits": s.bits,
+        "upper_bound": s.values_upper_bound,
+        "configured": s.is_configured,
+        "n": s.n,
+        "n_cap": s.n_cap,
+        "n_docs": s.n_docs,
+        "live_docs": s.live_docs,
+        "raw_max": s._raw_max,
+        "keep_raw": s.keep_raw,
+        "sample": [(int(i), d.tolist(), v.tolist()) for i, d, v in s._sample],
+    }
+    # chunked arrays and the npz first, the msgpack manifest last: loaders
+    # key on the manifest
+    _save_npz(snap_dir / "sparse.npz", {"alive": s._alive, "has_doc": s._has_doc, "raw_nnz": s._raw_nnz})
+    csr_t = s.tracker.view("csr")
+    save_chunked(snap_dir, "sp_keys", s._h_keys, csr_t)
+    save_chunked(snap_dir, "sp_ids", s._h_ids, csr_t)
+    save_chunked(snap_dir, "sp_buckets", s._h_buckets, csr_t)
+    raw_t = s.tracker.view("raw")
+    save_chunked(snap_dir, "sp_raw_dims", s._raw_dims, raw_t)
+    save_chunked(snap_dir, "sp_raw_vals", s._raw_vals, raw_t)
+    s.tracker.bump()  # later mutations mark chunks above this save's epoch
+    _atomic_write(snap_dir / "sparse.msgpack", msgpack.packb(data))
+
+
+def _load_sparse(s, snap_dir: Path) -> None:
+    """Load an inverted index saved by either package into ``s``."""
+    with open(snap_dir / "sparse.msgpack", "rb") as f:
+        data = msgpack.unpackb(f.read(), strict_map_key=False)
+    s.values_upper_bound = data["upper_bound"]
+    s.is_configured = data["configured"]
+    s.n = data["n"]
+    s.n_cap = data["n_cap"]
+    s.n_docs = data["n_docs"]
+    s.live_docs = data["live_docs"]
+    s._raw_max = data["raw_max"]
+    s.keep_raw = data["keep_raw"]
+    s._sample = [(i, np.asarray(d, np.int64), np.asarray(v, np.float32)) for i, d, v in data["sample"]]
+    z = np.load(snap_dir / "sparse.npz")
+    s._h_keys = np.asarray(load_chunked(snap_dir, "sp_keys"), np.int64)
+    s._h_ids = np.asarray(load_chunked(snap_dir, "sp_ids"), np.int32)
+    s._h_buckets = np.asarray(load_chunked(snap_dir, "sp_buckets"), np.int32)
+    s._alive = np.asarray(z["alive"], bool)
+    s._has_doc = np.asarray(z["has_doc"], bool)
+    s._raw_nnz = np.asarray(z["raw_nnz"], np.int32)
+    s._raw_dims = np.asarray(load_chunked(snap_dir, "sp_raw_dims"), np.int64)
+    s._raw_vals = np.asarray(load_chunked(snap_dir, "sp_raw_vals"), np.float32)
+    adopt_tracker(snap_dir, s.tracker, ["sp_keys", "sp_ids", "sp_buckets", "sp_raw_dims", "sp_raw_vals"])
+    s._alive_dev = None
+    s._csr_ids = None
+    s._csr_dirty = False
+    s._pend_docs, s._pend_dims, s._pend_buckets = [], [], []
+    s._rebuild_ranges()
 
 
 def _replay_map_log(coll, dense_rows, log_p: Path):
@@ -381,6 +448,8 @@ def load_collection_state(coll, snap_dir: str | Path) -> None:
             d.internal_of = [int(x) for x in dense_rows["internal_of"]]
             d.field_rows = {f: [int(x) for x in v] for f, v in dense_rows["field_rows"].items()}
             d.row_of = {int(iid): r for r, iid in enumerate(d.internal_of) if alive[r]}
+    if (snap_dir / "sparse.msgpack").exists() and coll.sparse is not None:
+        _load_sparse(coll.sparse, snap_dir)
     # incremental-maps bookkeeping
     d = coll.dense
     coll._maps_saved = {

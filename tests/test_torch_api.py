@@ -1,18 +1,21 @@
 """The port's REST server against the reference's: one script of requests
-(session; collection with a metadata schema; dense index; transaction
-upsert, commit and status poll; streaming upsert and delete; dense, batch
-and filtered search; GET vector; versions; 400/401/404 errors) runs through
-each app over aiohttp's TestClient, and every step must answer the same
-status and JSON. Scores agree within rtol 1e-5, atol 1e-6; result ids must
-agree where the reference's scores are untied. Timestamps, transaction ids
-and tokens differ by nature and are masked.
+(session; collection with a metadata schema; dense and sparse indexes;
+transaction upsert of dense + sparse vectors, commit and status poll;
+streaming upsert and delete; dense, batch and filtered search; sparse and
+batch-sparse search; hybrid and batch-hybrid search; GET vector;
+versions; 400/401/404 errors) runs through each app over aiohttp's
+TestClient, and every step must answer the same status and JSON. Scores
+agree within rtol 1e-5, atol 1e-6; result ids must agree where the
+reference's scores are untied. Timestamps, transaction ids and tokens
+differ by nature and are masked.
 
 The reference's indexes are kept off their graph build (scan-only from
 construction, as the port's are) and its wire probe is pinned fast, so it
 ships exact f32 rows and queries as the port does. The port's routes that
-are not ported (sparse, tf-idf, hybrid, neighbors) must answer 501 with a
-message that names their ROADMAP item, and a stored collection holding a
-sparse index must answer 501 too."""
+are not ported (tf-idf, a hybrid query_text leg, neighbors) must answer
+501 with a message that names their ROADMAP item; a stored collection
+holding a sparse index written by the reference is served with the
+reference's answers, and one holding a tf-idf index answers 501."""
 
 import asyncio
 
@@ -45,8 +48,20 @@ def _unit(n, seed):
     return x / np.linalg.norm(x, axis=1, keepdims=True)
 
 
+def _sparse(i, nnz=12):
+    """Doc i's sparse pairs: zipf-ish dims over a 400-dim vocab, seeded by i."""
+    rng = np.random.default_rng(1000 + i)
+    dims = (rng.pareto(1.2, nnz) * 10).astype(np.int64) % 400
+    return [[int(d), round(float(v), 6)] for d, v in zip(dims, rng.gamma(2.0, 0.8, nnz))]
+
+
+def _terms(i, n=5):
+    """Query terms: doc i's n rarest (highest) dims."""
+    return sorted(_sparse(i), key=lambda p: p[0])[-n:]
+
+
 def _vec(i, x):
-    v = {"id": f"v{i}", "dense_values": [round(float(a), 6) for a in x[i]]}
+    v = {"id": f"v{i}", "dense_values": [round(float(a), 6) for a in x[i]], "sparse_values": _sparse(i)}
     if i % 2 == 0:
         v["metadata"] = {"color": "red" if i % 4 == 0 else "blue"}
     return v
@@ -76,6 +91,9 @@ async def _script(client) -> list:
         "name": "par_dense", "distance_metric_type": "cosine",
         "quantization": {"type": "auto", "sample_threshold": 100},
     })
+    await call("create_sparse_index", "post", c + "/indexes/sparse", headers=h, json={
+        "name": "par_sparse", "quantization": 64, "sample_threshold": 200,
+    })
     txn = (await call("create_txn", "post", c + "/transactions", headers=h, json={}))["transaction_id"]
     for s in range(0, N, 400):
         await call("txn_upsert", "post", f"{c}/transactions/{txn}/upsert", headers=h,
@@ -101,6 +119,17 @@ async def _script(client) -> list:
         "query_vector": q[2].tolist(), "top_k": K,
         "filter": {"Is": {"field_name": "color", "field_value": "red", "operator": "Equal"}},
     })
+    await call("sparse_search", "post", c + "/search/sparse", headers=h,
+               json={"query_terms": _terms(7), "top_k": K})
+    await call("sparse_deleted", "post", c + "/search/sparse", headers=h,
+               json={"query_terms": _terms(5), "top_k": K})
+    await call("batch_sparse", "post", c + "/search/batch-sparse", headers=h,
+               json={"query_terms_list": [_terms(i) for i in range(20, 28)], "top_k": 5})
+    await call("hybrid", "post", c + "/search/hybrid", headers=h,
+               json={"query_vector": q[3].tolist(), "query_terms": _terms(9), "top_k": K})
+    await call("batch_hybrid", "post", c + "/search/batch-hybrid", headers=h, json={"queries": [
+        {"query_vector": x[i].tolist(), "query_terms": _terms(i + 1)} for i in range(30, 34)
+    ], "top_k": 5, "fusion_constant_k": 20})
     await call("get_vector", "get", c + "/vectors/v8", headers=h)
     await call("get_streamed_vector", "get", f"{c}/vectors/v{N + 3}", headers=h)
     await call("versions", "get", c + "/versions", headers=h)
@@ -205,7 +234,8 @@ def _compare(t, j):
 STEPS = [
     "session", "create_collection", "create_index", "create_txn", "txn_upsert", "txn_delete",
     "commit", "txn_status", "stream_upsert", "stream_delete", "search_self", "search_deleted",
-    "search_query", "batch_search", "filtered_search", "get_vector", "get_streamed_vector",
+    "search_query", "batch_search", "filtered_search", "create_sparse_index", "sparse_search",
+    "sparse_deleted", "batch_sparse", "hybrid", "batch_hybrid", "get_vector", "get_streamed_vector",
     "versions", "current_version", "indexing_status", "list_indexes", "err_wrong_dim",
     "err_missing_field", "err_no_session", "err_bad_password", "err_no_collection",
     "err_no_vector", "err_no_txn",
@@ -228,6 +258,13 @@ def test_script_semantics(transcripts):
     got = [r["id"] for r in port["filtered_search"][1]["results"]]
     assert len(got) == K and set(got) <= reds
     assert port["get_vector"][1]["metadata"] == {"color": "red"}
+    assert port["get_vector"][1]["sparse_values"] == sorted(
+        [[d, float(np.float32(v))] for d, v in _sparse(8)], key=lambda p: p[0]
+    )
+    assert "v7" in [r["id"] for r in port["sparse_search"][1]["results"]]
+    assert "v5" not in [r["id"] for r in port["sparse_deleted"][1]["results"]]
+    assert [len(r["results"]) for r in port["batch_sparse"][1]["responses"]] == [5] * 8
+    assert len(port["hybrid"][1]["results"]) == K
     assert port["txn_status"][1]["records_upserted"] == N
     assert [s for s, (st, _) in port.items() if st >= 400] == [s for s in STEPS if s.startswith("err_")]
 
@@ -255,6 +292,8 @@ async def _login(client):
 
 
 def test_not_ported_routes_answer_501(tmp_path):
+    """Sparse routes are served; tf-idf, a hybrid query_text leg and the
+    graph's /neighbors answer 501 naming their ROADMAP item."""
     async def script(client):
         h = await _login(client)
         c = "/vectordb/collections/sp"
@@ -281,23 +320,41 @@ def test_not_ported_routes_answer_501(tmp_path):
         return out
 
     out = _run_port(tmp_path, script)
+    served = {"sparse_index": 201, "sparse_search": 200, "batch_sparse": 200}
     for name, (status, body) in out.items():
+        if name in served:
+            assert status == served[name], (name, status, body)
+            continue
         assert status == 501, (name, status, body)
         assert "ROADMAP queue 1" in body["error"], (name, body)
-    assert "sparse, BM25 and hybrid" in out["sparse_search"][1]["error"]
+    assert out["sparse_index"][1]["index_type"] == "sparse"
+    assert out["sparse_search"][1]["results"] == [] and out["batch_sparse"][1]["responses"] == [{"results": []}]
+    for name in ("tfidf_index", "tfidf_search", "batch_tfidf", "hybrid", "batch_hybrid"):
+        assert "ROADMAP queue 1: BM25 and the text leg" in out[name][1]["error"], name
     assert "the graph" in out["neighbors"][1]["error"]
 
 
 def test_stored_sparse_collection_answers_501(tmp_path):
-    """A collection stored with a sparse index (written by the reference)
-    stays out of the port's loaded collections and answers 501 with the
-    reason; the port does not serve it with the sparse index dropped."""
+    """A collection stored with a sparse index by the reference (a
+    transaction of 300 sparse vectors with deletes) is served by the port
+    with the reference's answers; one stored with a tf-idf index stays out
+    of the port's loaded collections and answers 501 with the reason."""
     ref = JAppContext(j_load_config(data_path=str(tmp_path)), admin_key=ADMIN)
     coll = ref.create_collection({
         "name": "mixed", "dense_vector": {"enabled": True, "dimension": 4},
         "sparse_vector": {"enabled": True},
     })
-    coll.create_sparse_index()
+    coll.create_sparse_index(quantization=64, sample_threshold=100)
+    txn = coll.create_transaction()
+    coll.txn_upsert(txn.txn_id, [{"id": i, "sparse_values": _sparse(i)} for i in range(300)], True)
+    for i in (7, 21):
+        coll.txn_delete(txn.txn_id, i)
+    coll.index_version(coll.commit_transaction(txn.txn_id), txn)
+    queries = [_terms(i) for i in range(5, 25)]
+    want = coll.search_sparse([[tuple(p) for p in q] for q in queries], K)
+    want_vec = coll.get_vector(9)
+    tf = ref.create_collection({"name": "text", "tf_idf_options": {"enabled": True}})
+    tf.create_tf_idf_index()
     ref.create_collection({"name": "plain", "dense_vector": {"enabled": True, "dimension": 4}})
     ref.indexing.stop()
     ref.meta.close()
@@ -305,17 +362,27 @@ def test_stored_sparse_collection_answers_501(tmp_path):
     async def script(client):
         h = await _login(client)
         out = {}
-        for name in ("mixed", "plain"):
+        for name in ("mixed", "text", "plain"):
             resp = await client.get(f"/vectordb/collections/{name}", headers=h)
             out[name] = (resp.status, await resp.json())
         resp = await client.get("/vectordb/collections", headers=h)
-        out["list"] = [c["name"] for c in (await resp.json())["collections"]]
+        out["list"] = sorted(c["name"] for c in (await resp.json())["collections"])
+        resp = await client.post("/vectordb/collections/mixed/search/batch-sparse", headers=h,
+                                 json={"query_terms_list": queries, "top_k": K})
+        out["search"] = [r["results"] for r in (await resp.json())["responses"]]
+        resp = await client.get("/vectordb/collections/mixed/vectors/9", headers=h)
+        out["vector"] = await resp.json()
         return out
 
     out = _run_port(tmp_path, script)
-    assert out["mixed"][0] == 501 and "ROADMAP queue 1: sparse" in out["mixed"][1]["error"]
-    assert out["plain"][0] == 200
-    assert out["list"] == ["plain"]
+    assert out["mixed"][0] == 200 and out["plain"][0] == 200
+    assert out["text"][0] == 501 and "ROADMAP queue 1: BM25 and the text leg" in out["text"][1]["error"]
+    assert out["list"] == ["mixed", "plain"]
+    assert len(out["search"]) == len(want)
+    for t_row, j_row in zip(out["search"], want):
+        _compare_results(t_row, j_row)
+        assert not {7, 21} & {r["id"] for r in t_row}
+    assert out["vector"] == want_vec
 
 
 def test_cli_requires_device(tmp_path):

@@ -1,13 +1,13 @@
 """The port's gRPC server against the reference's: one script of calls
-(session; collection; dense index; transaction upsert and commit;
-FindSimilarVectors; GetVector; reflection; the UNAUTHENTICATED and
-NOT_FOUND errors) runs through an in-process server over each package's
-AppContext, and every call must answer the same status code and message.
-Scores agree within rtol 1e-5, atol 1e-6; match ids must agree where the
-reference's scores are untied. The reference's indexes are kept off their
-graph build and its wire probe is pinned fast, as in test_torch_api.py. A
-sparse or tf-idf index or search answers UNIMPLEMENTED from the port, with
-its ROADMAP item."""
+(session; collection; dense and sparse indexes; transaction upsert of
+dense + sparse vectors and commit; dense and sparse FindSimilarVectors;
+GetVector; reflection; the UNAUTHENTICATED and NOT_FOUND errors) runs
+through an in-process server over each package's AppContext, and every
+call must answer the same status code and message. Scores agree within
+rtol 1e-5, atol 1e-6; match ids must agree where the reference's scores
+are untied. The reference's indexes are kept off their graph build and its
+wire probe is pinned fast, as in test_torch_api.py. A tf-idf index or
+search answers UNIMPLEMENTED from the port, with its ROADMAP item."""
 
 import re
 
@@ -42,6 +42,13 @@ def _call(channel, service, method, req, resp_cls, token=None):
     )
     md = [("authorization", f"Bearer {token}")] if token else []
     return fn(req, metadata=md, timeout=60)
+
+
+def _sparse(i, nnz=10):
+    """Doc i's sparse pairs: zipf-ish dims over a 300-dim vocab, seeded by i."""
+    rng = np.random.default_rng(500 + i)
+    dims = (rng.pareto(1.2, nnz) * 8).astype(np.int64) % 300
+    return list(zip(dims.tolist(), rng.gamma(2.0, 0.8, nnz).astype(np.float32).tolist()))
 
 
 def _script(ctx, channel) -> dict:
@@ -79,11 +86,16 @@ def _script(ctx, channel) -> dict:
         collection_id="g", distance_metric_type="cosine",
         auto=pb.AutoQuantization(sample_threshold=64),
     ), empty_pb2.Empty, tok)
+    call("create_sparse_index", "IndexesService", "CreateSparseIndex", pb.CreateSparseIndexRequest(
+        collection_id="g", quantization=32, sample_threshold=50,
+    ), empty_pb2.Empty, tok)
     txn = call("create_txn", "TransactionsService", "CreateTransaction",
                pb.CreateTransactionRequest(collection_id="g"), pb.CreateTransactionResponse, tok).transaction_id
     req = pb.UpsertVectorsRequest(collection_id="g", transaction_id=txn)
     for i in range(N):
-        req.vectors.add(id=f"v{i}", dense_values=x[i].tolist())
+        v = req.vectors.add(id=f"v{i}", dense_values=x[i].tolist())
+        for d, val in _sparse(i):
+            v.sparse_values.add(index=d, value=val)
     call("upsert", "TransactionsService", "UpsertVectors", req, empty_pb2.Empty, tok)
     call("txn_delete", "TransactionsService", "DeleteVectorInTransaction",
          pb.DeleteVectorInTransactionRequest(collection_id="g", transaction_id=txn, vector_id="v4"),
@@ -96,6 +108,12 @@ def _script(ctx, channel) -> dict:
     for name, v in (("self", x[9]), ("deleted", x[4]), ("query", -x[11] + x[12])):
         call(f"find_{name}", "VectorsService", "FindSimilarVectors", pb.FindSimilarVectorsRequest(
             collection_id="g", dense=pb.FindSimilarDenseVectorsQuery(vector=v.tolist(), top_k=K),
+        ), pb.FindSimilarVectorsResponse, tok)
+    for name, i in (("sparse_self", 9), ("sparse_deleted", 4), ("sparse_query", 20)):
+        terms = sorted(_sparse(i))[-5:]
+        call(f"find_{name}", "VectorsService", "FindSimilarVectors", pb.FindSimilarVectorsRequest(
+            collection_id="g", sparse=pb.FindSimilarSparseVectorsQuery(
+                values=[pb.SparsePair(index=d, value=v) for d, v in terms], top_k=K),
         ), pb.FindSimilarVectorsResponse, tok)
     call("get_vector", "VectorsService", "GetVector",
          pb.GetVectorRequest(collection_id="g", vector_id="v9"), pb.VectorResponse, tok)
@@ -147,8 +165,9 @@ def transcripts(tmp_path_factory):
 
 STEPS = [
     "bad_password", "session", "no_session", "create_collection", "get_collection",
-    "get_collections", "no_collection", "create_index", "create_txn", "upsert", "txn_delete",
-    "commit", "commit_again", "find_self", "find_deleted", "find_query", "get_vector",
+    "get_collections", "no_collection", "create_index", "create_sparse_index", "create_txn", "upsert",
+    "txn_delete", "commit", "commit_again", "find_self", "find_deleted", "find_query", "find_sparse_self",
+    "find_sparse_deleted", "find_sparse_query", "get_vector",
     "no_vector", "reflection",
 ]
 VARYING = {"access_token", "created_at", "expires_at", "transaction_id"}
@@ -186,10 +205,16 @@ def test_port_semantics(transcripts):
     assert port["find_self"][1]["matches"][0]["id"] == "v9"
     assert "v4" not in [m["id"] for m in port["find_deleted"][1]["matches"]]
     assert len(port["get_vector"][1]["vector"]["dense_values"]) == DIM
+    got = sorted((p["index"], np.float32(p["value"])) for p in port["get_vector"][1]["vector"]["sparse_values"])
+    assert got == sorted((d, np.float32(v)) for d, v in _sparse(9))
+    assert "v9" in [m["id"] for m in port["find_sparse_self"][1]["matches"]]
+    assert "v4" not in [m["id"] for m in port["find_sparse_deleted"][1]["matches"]]
     assert port["no_session"][0] == "UNAUTHENTICATED" and port["no_vector"][0] == "NOT_FOUND"
 
 
 def test_sparse_answers_unimplemented(tmp_path):
+    """Sparse indexes and searches are served; a tf-idf index or search
+    answers UNIMPLEMENTED naming its ROADMAP item."""
     ctx = TAppContext(t_load_config(data_path=str(tmp_path)), admin_key=ADMIN, device="cpu")
     server = t_build_server(ctx, TSessions(ADMIN), address="127.0.0.1:0")
     port = server.add_insecure_port("127.0.0.1:0")
@@ -202,12 +227,14 @@ def test_sparse_answers_unimplemented(tmp_path):
             name="s", dense_vector=pb.DenseVectorOptions(enabled=True, dimension=4),
             sparse_vector=pb.SparseVectorOptions(enabled=True), tf_idf_options=pb.TFIDFOptions(enabled=True),
         ), pb.CreateCollectionResponse, tok)
+        _call(ch, "IndexesService", "CreateSparseIndex", pb.CreateSparseIndexRequest(collection_id="s"),
+              empty_pb2.Empty, tok)
+        resp = _call(ch, "VectorsService", "FindSimilarVectors", pb.FindSimilarVectorsRequest(
+            collection_id="s", sparse=pb.FindSimilarSparseVectorsQuery(top_k=3),
+        ), pb.FindSimilarVectorsResponse, tok)
+        assert list(resp.matches) == []
         for service, method, req, resp_cls in (
-            ("IndexesService", "CreateSparseIndex", pb.CreateSparseIndexRequest(collection_id="s"), empty_pb2.Empty),
             ("IndexesService", "CreateTFIDFIndex", pb.CreateTFIDFIndexRequest(collection_id="s"), empty_pb2.Empty),
-            ("VectorsService", "FindSimilarVectors", pb.FindSimilarVectorsRequest(
-                collection_id="s", sparse=pb.FindSimilarSparseVectorsQuery(top_k=3),
-            ), pb.FindSimilarVectorsResponse),
             ("VectorsService", "FindSimilarVectors", pb.FindSimilarVectorsRequest(
                 collection_id="s", tf_idf=pb.FindSimilarTFIDFDocumentQuery(query="hello", top_k=3),
             ), pb.FindSimilarVectorsResponse),
@@ -215,7 +242,7 @@ def test_sparse_answers_unimplemented(tmp_path):
             with pytest.raises(grpc.RpcError) as e:
                 _call(ch, service, method, req, resp_cls, tok)
             assert e.value.code() == grpc.StatusCode.UNIMPLEMENTED, (method, e.value.details())
-            assert "ROADMAP queue 1: sparse, BM25 and hybrid" in e.value.details()
+            assert "ROADMAP queue 1: BM25 and the text leg" in e.value.details()
     finally:
         ch.close()
         server.stop(0)

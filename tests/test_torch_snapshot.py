@@ -12,7 +12,15 @@ which answers identically after a restart and which the reference loads
 back. The reference serves tombstoned rows from a scan-only snapshot (its
 loader replaces ``alive`` by a (1,) dummy that ``search_brute_device``
 broadcasts), which its result formatting then drops, so its lists there
-are the port's lists less some entries, in the same order."""
+are the port's lists less some entries, in the same order.
+
+A sparse collection goes the same way: the reference writes 1,500 docs
+(zipf dims over a 500-dim vocab, 16 pairs each) through a transaction
+with deletes, streams a few more and a delete; the port opens it, answers
+its sparse searches (scores rtol 1e-5, atol 1e-6; ids where untied) and
+GETs as the reference does, writes its own sparse snapshot (the
+reference's layout), answers identically after a restart, and the
+reference loads that snapshot back with the port's answers."""
 
 import numpy as np
 import pytest
@@ -35,6 +43,23 @@ KINDS = {
 SCHEMA = {"fields": [{"name": "color", "values": ["red", "blue"]}], "supported_conditions": []}
 RED = {"Is": {"field_name": "color", "field_value": "red", "operator": "Equal"}}
 PROBE_IDS = [8, 9, 41, N + 2]
+N_SP = 1500
+SP_PROBES = [8, 9, 41, N_SP + 2]
+
+
+def sparse_corpus(n, seed=7):
+    rng = np.random.default_rng(seed)
+    dims = (rng.pareto(1.2, size=(n, 16)) * 15).astype(np.int64) % 500
+    vals = rng.gamma(2.0, 0.8, size=(n, 16)).astype(np.float32)
+    return dims, vals
+
+
+def _sparse_vec(i, dims, vals):
+    return {"id": i, "sparse_values": [[int(d), float(v)] for d, v in zip(dims[i], vals[i])]}
+
+
+def _sparse_queries(dims, vals):
+    return [[(int(d), float(v)) for d, v in sorted(zip(dims[i], vals[i]))[-6:]] for i in range(0, 160, 10)]
 
 
 def gen_clustered(n, nq, seed=0):
@@ -69,6 +94,11 @@ def _answers(ctx, q):
             "filtered": coll.search_dense(q, K, filter_dto=RED),
             "vectors": [coll.get_vector(i) for i in PROBE_IDS],
         }
+    coll = ctx.get_collection("sparse")
+    out["sparse"] = {
+        "search": coll.search_sparse(_sparse_queries(*sparse_corpus(N_SP + 10)), K),
+        "vectors": [coll.get_vector(i) for i in SP_PROBES],
+    }
     return out
 
 
@@ -88,6 +118,16 @@ def _reference_writes(data_dir, x, q):
         coll.stream_upsert([_vec(i, x) for i in range(N, N + 10)])
         coll.stream_delete(41)
         assert not coll.dense.index.scan_only  # the snapshot holds the graph
+    dims, vals = sparse_corpus(N_SP + 10)
+    coll = ctx.create_collection({"name": "sparse", "sparse_vector": {"enabled": True}})
+    coll.create_sparse_index(quantization=64, sample_threshold=300)
+    txn = coll.create_transaction()
+    coll.txn_upsert(txn.txn_id, [_sparse_vec(i, dims, vals) for i in range(N_SP)], True)
+    for i in range(3, 90, 3):
+        coll.txn_delete(txn.txn_id, i)
+    coll.index_version(coll.commit_transaction(txn.txn_id), txn)
+    coll.stream_upsert([_sparse_vec(i, dims, vals) for i in range(N_SP, N_SP + 10)])
+    coll.stream_delete(41)
     answers = _answers(ctx, q)
     ctx.indexing.stop()
     ctx.meta.close()
@@ -101,7 +141,7 @@ def runs(tmp_path_factory):
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(JS, "_WIRE_BW_MBPS", 1e9)  # the reference ships exact f32 rows and queries
         ref = _reference_writes(data_dir, x, q)
-        snap = {name: data_dir / "collections" / name / "snapshot" for name in KINDS}
+        snap = {name: data_dir / "collections" / name / "snapshot" for name in (*KINDS, "sparse")}
         graph_before = {name: (p / "adj0.meta.json").exists() for name, p in snap.items()}
         wals_before = {name: len(list(p.parent.glob("*.wal"))) for name, p in snap.items()}
         port_ctx = TAppContext(t_load_config(data_path=str(data_dir)), admin_key=ADMIN, device="cpu")
@@ -176,6 +216,32 @@ def _in_order_subset(j_rows, t_rows):
         assert [r["id"] for r in t_row if r["id"] in {s["id"] for s in j_row}] == [r["id"] for r in j_row]
         np.testing.assert_allclose([r["score"] for r in j_row], [t_scores[r["id"]] for r in j_row],
                                    rtol=1e-5, atol=1e-6)
+
+
+def test_sparse_search_matches_reference(runs):
+    _same_results(runs["port"]["sparse"]["search"], runs["ref"]["sparse"]["search"])
+    dead = {41, *range(3, 90, 3)}
+    assert not dead & {r["id"] for row in runs["port"]["sparse"]["search"] for r in row}
+
+
+def test_sparse_get_vector_matches_reference(runs):
+    t, j = runs["port"]["sparse"]["vectors"], runs["ref"]["sparse"]["vectors"]
+    assert t == j
+    assert j[2] is None and len(j[3]["sparse_values"]) == 16  # 41 deleted, N_SP + 2 streamed
+
+
+def test_port_sparse_snapshot_round_trip(runs):
+    """The port replayed the streamed WAL, wrote its own sparse snapshot in
+    the reference's layout, and a restarted port answers identically."""
+    _, wals_before, wals_after, _ = runs["files"]
+    assert (wals_before["sparse"], wals_after["sparse"]) == (1, 0)
+    assert runs["restart"]["sparse"] == runs["port"]["sparse"]
+
+
+def test_reference_loads_port_sparse_snapshot(runs):
+    back, port = runs["back"]["sparse"], runs["port"]["sparse"]
+    _same_results(back["search"], port["search"])
+    assert back["vectors"] == port["vectors"]
 
 
 @pytest.mark.parametrize("kind", list(KINDS))

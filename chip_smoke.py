@@ -8,12 +8,14 @@ Run from the repository root on a machine with one CUDA card:
 
 Phases: 0 environment; 1 build both kernels (u8_bin_max, K1;
 subbyte_code_scores, K2) from the checkout's sources, in parallel; 2 K1
-against its plain PyTorch version at the u8 path's shapes; 3 the u8 path at
-1M x 768 through DenseIndexHandle.search and FlatIndex.search, recall@10
-against an exact f32 oracle and K1's launch count; 4 u8 search semantics;
-5 K2 against its plain version, bit for bit; 6 the sub-byte path on the
-same corpus through a quaternary DenseIndexHandle at 1M rows, recall@10 and
-K2's launch count; 7 quaternary search semantics; 8 a quaternary FlatIndex
+against its plain PyTorch version at the u8 path's shapes and the tiles'
+edges, timed beside its bound and torch._int_mm; 3 the u8 path at 1M x 768
+through DenseIndexHandle.search and FlatIndex.search, recall@10 against an
+exact f32 oracle and K1's launch count; 4 u8 search semantics; 5 K2 and
+its query unpack against their plain versions, bit for bit, timed
+likewise; 6 the sub-byte path
+on the same corpus through a quaternary DenseIndexHandle at 1M rows,
+recall@10 and K2's launch count; 7 quaternary search semantics; 8 a quaternary FlatIndex
 at 262,144 rows (the reference's bench row) at b1024 and b4096, then
 binary, octal and f16 at b1024; 9 the REST server (``AppContext`` on the
 card, aiohttp on a local port): a 65,536 x 768 collection written through
@@ -66,6 +68,7 @@ from cosdata_tpu_torch.indexes.inverted import InvertedIndex
 from cosdata_tpu_torch.ops import sparse_kernels
 from cosdata_tpu_torch.ops.kernels import subbyte_scan, u8_scan
 from cosdata_tpu_torch.ops.quantize import quantize_subbyte, quantize_u8
+from cosdata_tpu_torch.tools.measure import bound, card_line, clustered, cuda_ms, device_ms
 
 SEED = 0
 N, DIM, NQ = 1_000_000, 768, 4096
@@ -94,42 +97,6 @@ def phase(name: str) -> None:
     print(f"== {name}", flush=True)
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout
-    return out.strip().splitlines()[0]
-
-
-def cuda_ms(fn, reps: int = 5) -> float:
-    """Median device time of ``fn`` over ``reps`` runs (CUDA events)."""
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    times = []
-    for _ in range(reps):
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-def clustered(n: int, nq: int, d: int, gen: torch.Generator, dev):
-    """bench.py's gen_clustered formula: n//100 unit centres, noise 0.5/sqrt(d), unit rows."""
-    n_clusters = max(n // 100, 16)
-    centers = torch.randn((n_clusters, d), generator=gen, device=dev)
-    centers /= torch.linalg.vector_norm(centers, dim=1, keepdim=True)
-    noise = float(np.float32(0.5 / np.sqrt(d)))
-
-    def rows(m):
-        x = torch.randn((m, d), generator=gen, device=dev) * noise
-        x += centers[torch.randint(0, n_clusters, (m,), generator=gen, device=dev)]
-        return x / torch.linalg.vector_norm(x, dim=1, keepdim=True)
-
-    return rows(n), rows(nq)
-
-
 def exact_top10(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -153,11 +120,41 @@ def timed_search(fn, reps: int = 5) -> tuple[float, object]:
     return statistics.median(times), out
 
 
-def kernel_check(gen, dev) -> tuple[float, float, float]:
-    """Kernel vs plain at the listed shapes; returns (max_abs_err, ms, plain_ms)."""
+#: K1's timed shapes: B=1024 (the bench batch) and B=128 (one served
+#: request), both at C=1,048,576, Dp=768, cosine
+K1_TIMED = (1024, 128)
+
+
+def kernel_timing(what: str, kernel, plain, library, plain_reps: int, ops: float, nbytes: float,
+                  card: str) -> dict:
+    """Plain, kernel, kernel, plain in turns, each the median of single
+    calls timed alone (``cuda_ms``: 5 calls, ``plain_reps`` for the plain
+    version), then one library call on the same inputs (``torch._int_mm``:
+    the product only; None where there is none) timed the same way. Then
+    the kernel and the library call back to back (``device_ms``, 20 calls
+    behind a spin kernel: no host time between calls), under their own
+    keys. And the bound for ``ops`` int8 operations moving ``nbytes``."""
+    p1 = cuda_ms(plain, plain_reps)
+    k1 = cuda_ms(kernel, 5)
+    k2 = cuda_ms(kernel, 5)
+    p2 = cuda_ms(plain, plain_reps)
+    lib = cuda_ms(library, 5) if library else None
+    b2b = device_ms(kernel, 20)
+    lib_b2b = device_ms(library, 20) if library else None
+    bound_ms, bound_by = bound(ops, nbytes)
+    lib_text = f"torch._int_mm (product only) {lib:.4f} ms, back to back {lib_b2b:.4f}; " if library else ""
+    print(f"  time at {what}: kernel {k1:.4f}/{k2:.4f} ms, back to back {b2b:.4f}; plain {p1:.3f}/{p2:.3f} ms; "
+          f"{lib_text}bound {bound_ms:.4f} ms ({bound_by}) [{card}]", flush=True)
+    return {"ms": min(k1, k2), "plain_ms": min(p1, p2), "library_ms": lib, "bound_ms": bound_ms,
+            "bound_by": bound_by, "ms_back_to_back": b2b, "library_ms_back_to_back": lib_b2b}
+
+
+def kernel_check(gen, dev, card: str) -> tuple[float, dict]:
+    """K1 against its plain version at the listed shapes (B = 1, 100 and 128
+    and C = 4,128 hit the tiles' edges); returns (max_abs_err, timings by B)."""
     max_err = 0.0
-    ms = plain_ms = None
-    for c in (65_536, 1_048_576):
+    timed = {}
+    for c in (4_128, 65_536, 1_048_576):
         for dp in (128, 768):
             d_true = dp - 28 if dp == 128 else dp
             x = torch.rand((c, dp), generator=gen, device=dev) * 2 - 1
@@ -167,36 +164,38 @@ def kernel_check(gen, dev) -> tuple[float, float, float]:
             valid[5] = False
             valid[c - 1000 :] = False  # ragged valid tail
             valid[c // 2 : c // 2 + 64] = False  # two whole invalid bins
-            for b in (8, 1024, 4096):
-                q = quantize_u8(torch.rand((b, dp), generator=gen, device=dev) * 2 - 1, -0.6, 0.7, d_true)
-                for metric in ("cosine", "dot"):
+            for metric in ("cosine", "dot"):
+                errs = []
+                for b in (1, 8, 100, 128, 1024, 4096):
+                    q = quantize_u8(torch.rand((b, dp), generator=gen, device=dev) * 2 - 1, -0.6, 0.7, d_true)
                     t = u8_scan.bin_max_terms(metric, q, store, valid, dp)
                     got = u8_scan.u8_bin_max(metric, 32, t)
                     want = u8_scan.u8_bin_max_plain(metric, 32, t)
                     torch.cuda.synchronize()
+                    if got.shape != want.shape:
+                        fail(f"K1 shape {tuple(got.shape)} != {tuple(want.shape)} at B={b} C={c} Dp={dp}")
                     live = want > -1e37
                     if not bool((got[~live] < -1e37).all()):
                         fail(f"invalid bins not sunk at B={b} C={c} Dp={dp} {metric}")
                     err = (got[live] - want[live]).abs()
                     bad = err > ATOL + RTOL * want[live].abs()
                     e = float(err.max()) if err.numel() else 0.0
-                    print(f"  B={b:5d} C={c:8d} Dp={dp:4d} {metric:6s} max_abs_err={e:.3g}", flush=True)
+                    errs.append(f"B={b}:{e:.3g}")
                     if bool(bad.any()):
                         fail(f"kernel disagrees with plain at B={b} C={c} Dp={dp} {metric}: {e}")
                     max_err = max(max_err, e)
-                    if (b, c, dp, metric) == (1024, 1_048_576, 768, "cosine"):
-                        # plain, kernel, kernel, plain in turns
-                        p1 = cuda_ms(lambda: u8_scan.u8_bin_max_plain(metric, 32, t), 3)
-                        k1 = cuda_ms(lambda: u8_scan.u8_bin_max(metric, 32, t), 5)
-                        k2 = cuda_ms(lambda: u8_scan.u8_bin_max(metric, 32, t), 5)
-                        p2 = cuda_ms(lambda: u8_scan.u8_bin_max_plain(metric, 32, t), 3)
-                        ms, plain_ms = min(k1, k2), min(p1, p2)
-                        print(f"  time at B=1024 C=1048576 Dp=768: kernel {k1:.3f}/{k2:.3f} ms, "
-                              f"plain {p1:.3f}/{p2:.3f} ms", flush=True)
+                    if (c, dp, metric) == (1_048_576, 768, "cosine") and b in K1_TIMED:
+                        # codes and query codes read once, the row and query terms, the bins written
+                        timed[b] = kernel_timing(
+                            f"B={b} C={c} Dp={dp}", lambda: u8_scan.u8_bin_max(metric, 32, t),
+                            lambda: u8_scan.u8_bin_max_plain(metric, 32, t),
+                            lambda: torch._int_mm(t.q_codes, t.codes.t()), 3, 2.0 * b * c * dp,
+                            c * dp + b * dp + 12 * c + 8 * b + 4 * b * (c // 32), card)
                     del t, got, want
+                print(f"  C={c:8d} Dp={dp:4d} {metric:6s} max_abs_err {' '.join(errs)}", flush=True)
             del store
             torch.cuda.empty_cache()
-    return max_err, ms, plain_ms
+    return max_err, timed
 
 
 def check_results(name: str, ids, truth: torch.Tensor, t: float, card: str, gate: bool) -> None:
@@ -212,6 +211,7 @@ def check_results(name: str, ids, truth: torch.Tensor, t: float, card: str, gate
 def reset_counts() -> None:
     u8_scan.u8_bin_max.launches = 0
     subbyte_scan.subbyte_code_scores.launches = 0
+    subbyte_scan.unpack_query_codes.launches = 0
 
 
 def main_path(x, q, truth, dev, card: str) -> tuple[int, DenseIndexHandle]:
@@ -273,43 +273,68 @@ def main_path(x, q, truth, dev, card: str) -> tuple[int, DenseIndexHandle]:
     return launches, handle
 
 
-def k2_check(gen, dev) -> tuple[int, float, float]:
-    """K2 against its plain version, bit for bit, at the listed shapes;
-    returns (max_abs_err, ms, plain_ms)."""
-    max_err = 0
-    ms = plain_ms = None
+def k2_check(gen, dev, card: str) -> tuple[int, dict, int, dict]:
+    """K2 against its plain version, bit for bit: res 1-3; Dp 128 (d_true
+    100), 160 (a partial K-slice), 768 and 1,536 (two K-chunks); the whole
+    store and two row chunks of it, strided views of its planes (C = 65,440
+    and 4,128 ragged against the 128-row store tile); B = 1 to 4,096. The
+    query unpack kernel against word_major_codes at the same shapes; the
+    row chunks take its codes as the chunked scan passes them, the whole
+    store has the wrapper unpack. Returns (K2's max_abs_err, its timing at
+    res=2, B=1024, C=65,536, Dp=768, the unpack's max_abs_err, its timing
+    at res=2, B=1024, Dp=768)."""
+    max_err = unpack_err = 0
+    timed = unpack_timed = None
     for res in (1, 2, 3):
-        for dp in (128, 768):
+        for dp in (128, 160, 768, 1536):
             d_true = dp - 28 if dp == 128 else dp
-            x = torch.rand((65_536, dp), generator=gen, device=dev) * 2 - 1
+            x = torch.rand((65_536 if dp in (128, 768) else 8_192, dp), generator=gen, device=dev) * 2 - 1
             whole = quantize_subbyte(x, res, d_true)
             del x
-            # the ragged C is a row chunk of the store: a strided view of its planes
-            for planes in (whole.planes, whole.planes[:, 96:]):
+            for planes in (whole.planes, whole.planes[:, 96:], whole.planes[:, 1000:5128]):
                 c = planes.shape[1]
-                for b in (8, 1024, 4096):
+                errs = []
+                for b in (1, 8, 100, 128, 1024, 4096):
                     q = quantize_subbyte(torch.rand((b, dp), generator=gen, device=dev) * 2 - 1, res, d_true)
-                    got = subbyte_scan.subbyte_code_scores(q.planes, planes, dp)
+                    q_codes = subbyte_scan.unpack_query_codes(q.planes)
+                    ue = int((q_codes.to(torch.int32) - subbyte_scan.word_major_codes(q.planes).to(torch.int32))
+                             .abs().max())
+                    if ue != 0:
+                        fail(f"the query unpack disagrees with word_major_codes at res={res} B={b} Dp={dp}: {ue}")
+                    unpack_err = max(unpack_err, ue)
+                    chunk = planes is not whole.planes
+                    got = subbyte_scan.subbyte_code_scores(q.planes, planes, dp, q_codes if chunk else None)
                     want = subbyte_scan.subbyte_code_scores_plain(q.planes, planes, dp)
                     torch.cuda.synchronize()
+                    if got.shape != (b, c):
+                        fail(f"K2 shape {tuple(got.shape)} at res={res} B={b} C={c} Dp={dp}")
                     e = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
-                    print(f"  res={res} B={b:5d} C={c:6d} Dp={dp:4d} d_true={d_true:4d} max_abs_err={e}", flush=True)
-                    if e != 0 or got.shape != (b, c):
+                    errs.append(f"B={b}:{e}")
+                    if e != 0:
                         fail(f"K2 disagrees with plain at res={res} B={b} C={c} Dp={dp}: {e}")
                     max_err = max(max_err, e)
                     if (res, b, c, dp) == (2, 1024, 65_536, 768):
-                        # plain, kernel, kernel, plain in turns
-                        p1 = cuda_ms(lambda: subbyte_scan.subbyte_code_scores_plain(q.planes, planes, dp), 5)
-                        k1 = cuda_ms(lambda: subbyte_scan.subbyte_code_scores(q.planes, planes, dp), 5)
-                        k2 = cuda_ms(lambda: subbyte_scan.subbyte_code_scores(q.planes, planes, dp), 5)
-                        p2 = cuda_ms(lambda: subbyte_scan.subbyte_code_scores_plain(q.planes, planes, dp), 5)
-                        ms, plain_ms = min(k1, k2), min(p1, p2)
-                        print(f"  time at res=2 B=1024 C=65536 Dp=768: kernel {k1:.3f}/{k2:.3f} ms, "
-                              f"plain {p1:.3f}/{p2:.3f} ms", flush=True)
-                    del got, want, q
+                        qc, vc = subbyte_scan.word_major_codes(q.planes), subbyte_scan.word_major_codes(planes)
+                        # both sides' planes read once, the int32 dots written (the wrapper's
+                        # query unpack included)
+                        timed = kernel_timing(
+                            f"res={res} B={b} C={c} Dp={dp}",
+                            lambda: subbyte_scan.subbyte_code_scores(q.planes, planes, dp),
+                            lambda: subbyte_scan.subbyte_code_scores_plain(q.planes, planes, dp),
+                            lambda: torch._int_mm(qc, vc.t()), 5, 2.0 * b * c * dp,
+                            4 * res * (dp // 32) * (b + c) + 4 * b * c, card)
+                        # the query planes read once, the int8 codes written; no arithmetic to speak of
+                        unpack_timed = kernel_timing(
+                            f"the query unpack, res={res} B={b} Dp={dp}",
+                            lambda: subbyte_scan.unpack_query_codes(q.planes),
+                            lambda: subbyte_scan.word_major_codes(q.planes), None, 5, 0.0,
+                            4 * res * (dp // 32) * b + b * dp, card)
+                        del qc, vc
+                    del got, want, q, q_codes
+                print(f"  res={res} C={c:6d} Dp={dp:4d} d_true={d_true:4d} max_abs_err {' '.join(errs)}", flush=True)
             del whole, planes
             torch.cuda.empty_cache()
-    return max_err, ms, plain_ms
+    return max_err, timed, unpack_err, unpack_timed
 
 
 def flat_index(kind: str, x, dev) -> FlatIndex:
@@ -319,10 +344,10 @@ def flat_index(kind: str, x, dev) -> FlatIndex:
     return flat
 
 
-def subbyte_path(x, q, truth, dev, card: str) -> tuple[int, DenseIndexHandle]:
-    """Phases 6 to 8; returns K2's launches during the quaternary runs and
-    the quaternary handle, which phase 11 serves."""
-    k2 = subbyte_scan.subbyte_code_scores
+def subbyte_path(x, q, truth, dev, card: str) -> tuple[int, int, DenseIndexHandle]:
+    """Phases 6 to 8; returns K2's and the query unpack's launches during
+    the quaternary runs and the quaternary handle, which phase 11 serves."""
+    k2, unpack = subbyte_scan.subbyte_code_scores, subbyte_scan.unpack_query_codes
     t0 = time.perf_counter()
     handle = DenseIndexHandle(DIM, dev, quantization={"type": "scalar", "data_type": "quaternary"})
     for s in range(0, N, ADD_BATCH):
@@ -333,12 +358,12 @@ def subbyte_path(x, q, truth, dev, card: str) -> tuple[int, DenseIndexHandle]:
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t_h, (h_ids, _) = timed_search(lambda: handle.search(q[:1024], 10))
-    launches_h = k2.launches
+    launches_h, unpack_h = k2.launches, unpack.launches
     check_results(f"quaternary DenseIndexHandle.search {N} rows b1024", h_ids, truth[:1024], t_h, card, True)
     print(f"store bytes {handle.index.store.device_nbytes()}; peak allocated during search "
-          f"{torch.cuda.max_memory_allocated()} B; K2 launches {launches_h} [{card}]")
-    if launches_h == 0:
-        fail("the quaternary DenseIndexHandle path never launched K2")
+          f"{torch.cuda.max_memory_allocated()} B; K2 launches {launches_h}, query unpack {unpack_h} [{card}]")
+    if launches_h == 0 or unpack_h == 0:
+        fail("the quaternary DenseIndexHandle path never launched K2 or the query unpack")
 
     phase("7 quaternary semantics")
     probe = [7, N // 3]
@@ -365,13 +390,13 @@ def subbyte_path(x, q, truth, dev, card: str) -> tuple[int, DenseIndexHandle]:
     reset_counts()
     t_f1, (f1_ids, _) = timed_search(lambda: flat.search(q[:1024], 10, rerank=True, rerank_factor=20))
     t_f4, (f4_ids, _) = timed_search(lambda: flat.search(q, 10, rerank=True, rerank_factor=20))
-    launches_f = k2.launches
+    launches_f, unpack_f = k2.launches, unpack.launches
     check_results("quaternary FlatIndex.search(rerank x20) b1024", f1_ids, truth_s[:1024], t_f1, card, True)
     check_results("quaternary FlatIndex.search(rerank x20) b4096", f4_ids, truth_s, t_f4, card, True)
     print(f"store bytes {flat.store.device_nbytes()}; peak allocated during search "
-          f"{torch.cuda.max_memory_allocated()} B; K2 launches {launches_f} [{card}]")
-    if launches_f == 0:
-        fail("the quaternary FlatIndex path never launched K2")
+          f"{torch.cuda.max_memory_allocated()} B; K2 launches {launches_f}, query unpack {unpack_f} [{card}]")
+    if launches_f == 0 or unpack_f == 0:
+        fail("the quaternary FlatIndex path never launched K2 or the query unpack")
     del flat
     torch.cuda.empty_cache()
     # octal at the handle's 5x ladder step and at 20x
@@ -381,10 +406,11 @@ def subbyte_path(x, q, truth, dev, card: str) -> tuple[int, DenseIndexHandle]:
             reset_counts()
             t, (ids, _) = timed_search(lambda: flat.search(q[:1024], 10, rerank=True, rerank_factor=factor), reps=1)
             check_results(f"{kind} FlatIndex.search(rerank x{factor}) b1024", ids, truth_s[:1024], t, card, False)
-            print(f"  store bytes {flat.store.device_nbytes()}; K2 launches {k2.launches}")
+            print(f"  store bytes {flat.store.device_nbytes()}; K2 launches {k2.launches}, query unpack "
+                  f"{unpack.launches}")
         del flat
         torch.cuda.empty_cache()
-    return launches_h + launches_f, handle
+    return launches_h + launches_f, unpack_h + unpack_f, handle
 
 
 class RestServer:
@@ -622,11 +648,11 @@ def served_phase(ctx: AppContext, client: RestClient, u8_handle, q4_handle, q, t
     reset_counts()
     sub = qr[: 8 * QUERY_ROWS]
     ids4, _, dt4, lat4 = batch_search(client, "served_q4", sub, WORKERS)
-    k2 = subbyte_scan.subbyte_code_scores.launches
+    k2, unpack = subbyte_scan.subbyte_code_scores.launches, subbyte_scan.unpack_query_codes.launches
     served_line(f"served quaternary {N} rows, {WORKERS} workers", ids4, truth[: len(sub)].cpu().numpy(),
                 dt4, lat4, card)
-    print(f"subbyte_code_scores launches in phase 11: {k2}", flush=True)
-    return {"k1": k1, "k2": k2, "ids": ids, "qr": qr}
+    print(f"subbyte_code_scores launches in phase 11: {k2}, query unpack {unpack}", flush=True)
+    return {"k1": k1, "k2": k2, "unpack": unpack, "ids": ids, "qr": qr}
 
 
 def grpc_find(ctx: AppContext, requests: list) -> tuple[list, float]:
@@ -999,6 +1025,15 @@ def hybrid_phase(x, q, hy_dims, hy_vals, dev, card: str) -> int:
     return launches
 
 
+def launches_per_batch(kernels, search) -> list[int]:
+    """The launches of each of ``kernels`` in one b1024 search of the main path."""
+    reset_counts()
+    search()
+    n = [kernel.launches for kernel in kernels]
+    reset_counts()
+    return n
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke needs a CUDA card")
@@ -1023,14 +1058,15 @@ def main() -> None:
     print(f"built {', '.join(lib.library.name for lib in libs)} in {time.perf_counter() - t0:.2f} s")
     for lib, log in zip(libs, logs):
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
+            if any(key in line for key in ("registers", "spill", "smem", "wgmma", "arning")):
                 print(f"  {lib.name}: {line.strip()}")
 
     phase("2 kernel against plain")
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    max_err, ms, plain_ms = kernel_check(gen, dev)
-    print(f"kernel vs plain: max_abs_err {max_err:.3g} (rtol {RTOL}, atol {ATOL}); "
-          f"B=1024 C=1048576 Dp=768: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms [{card}]")
+    max_err, k1_timed = kernel_check(gen, dev, card)
+    print(f"kernel vs plain: max_abs_err {max_err:.3g} (rtol {RTOL}, atol {ATOL}); B=1024 C=1048576 Dp=768: "
+          f"kernel {k1_timed[1024]['ms']:.4f} ms, plain {k1_timed[1024]['plain_ms']:.3f} ms; B=128: kernel "
+          f"{k1_timed[128]['ms']:.4f} ms [{card}]")
 
     phase(f"3 main path at {N} x {DIM}")
     t0 = time.perf_counter()
@@ -1039,15 +1075,18 @@ def main() -> None:
     torch.cuda.synchronize()
     print(f"corpus + oracle in {time.perf_counter() - t0:.1f} s")
     launches, u8_handle = main_path(x, q, truth, dev, card)
+    (k1_per_batch,) = launches_per_batch([u8_scan.u8_bin_max], lambda: u8_handle.search(q[:1024], 10))
     torch.cuda.empty_cache()
 
     phase("5 K2 against plain")
-    k2_err, k2_ms, k2_plain_ms = k2_check(gen, dev)
-    print(f"K2 vs plain: max_abs_err {k2_err} (bit-exact required); res=2 B=1024 C=65536 Dp=768: "
-          f"kernel {k2_ms:.3f} ms, plain {k2_plain_ms:.3f} ms [{card}]")
+    k2_err, k2_timed, unpack_err, unpack_timed = k2_check(gen, dev, card)
+    print(f"K2 vs plain: max_abs_err {k2_err} (bit-exact required), query unpack {unpack_err}; res=2 B=1024 "
+          f"C=65536 Dp=768: kernel {k2_timed['ms']:.4f} ms, plain {k2_timed['plain_ms']:.3f} ms [{card}]")
 
     phase(f"6 quaternary DenseIndexHandle at {N} x {DIM}")
-    k2_launches, q4_handle = subbyte_path(x, q, truth, dev, card)
+    k2_launches, unpack_launches, q4_handle = subbyte_path(x, q, truth, dev, card)
+    k2_per_batch, unpack_per_batch = launches_per_batch(
+        [subbyte_scan.subbyte_code_scores, subbyte_scan.unpack_query_codes], lambda: q4_handle.search(q[:1024], 10))
 
     phase(f"9 REST ingest and search at {N_REST} x {DIM}")
     x_rest = np.round(x[:N_REST].cpu().numpy().astype(np.float64), 6)
@@ -1076,11 +1115,13 @@ def main() -> None:
         server.close()
         ctx.close()
     for name, n_launch in (("9 (K1)", rest["launches"]), ("10 (K1)", k1_restart), ("11 (K1)", served["k1"]),
-                           ("11 (K2)", served["k2"]), ("12 (K1)", k1_grpc)):
+                           ("11 (K2)", served["k2"]), ("11 (query unpack)", served["unpack"]),
+                           ("12 (K1)", k1_grpc)):
         if n_launch == 0:
             fail(f"phase {name} never launched its kernel")
     launches += rest["launches"] + k1_restart + served["k1"] + k1_grpc
     k2_launches += served["k2"]
+    unpack_launches += served["unpack"]
 
     phase(f"13 sparse engine at {N_SP} docs")
     sparse_phase(dev, card)
@@ -1096,24 +1137,39 @@ def main() -> None:
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
     print(card)
+    # ms, plain_ms, library_ms and bound_ms at the headline shapes (K1 B=1024,
+    # C=1,048,576, Dp=768; K2 res=2, B=1024, C=65,536, Dp=768; the query
+    # unpack res=2, B=1024, Dp=768): ms and plain_ms are single calls timed
+    # alone, *_back_to_back the mean of calls queued back to back; library_ms
+    # is torch._int_mm, the product only; K1 at B=128 beside it
     print(json.dumps({"kernels": [{
         "name": "u8_bin_max",
         "route": "cuda",
         "source": "cosdata_tpu_torch/csrc/u8_bin_max.cu",
         "replaces": "cosdata_tpu/ops/pallas/u8_scan.py:69",
         "launches": launches,
+        "launches_per_batch": k1_per_batch,
         "max_abs_err": max_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
+        **k1_timed[1024],
+        "b128": k1_timed[128],
     }, {
         "name": "subbyte_code_scores",
         "route": "cuda",
         "source": "cosdata_tpu_torch/csrc/subbyte_code_scores.cu",
         "replaces": "cosdata_tpu/ops/pallas/subbyte_scan.py:55",
         "launches": k2_launches,
+        "launches_per_batch": k2_per_batch,
         "max_abs_err": k2_err,
-        "ms": k2_ms,
-        "plain_ms": k2_plain_ms,
+        **k2_timed,
+    }, {
+        "name": "unpack_query_codes",
+        "route": "cuda",
+        "source": "cosdata_tpu_torch/csrc/subbyte_code_scores.cu",
+        "replaces": "cosdata_tpu/ops/pallas/subbyte_scan.py:99",
+        "launches": unpack_launches,
+        "launches_per_batch": unpack_per_batch,
+        "max_abs_err": unpack_err,
+        **unpack_timed,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -104,11 +104,12 @@ def euclidean_u8(q: QuantizedU8, v: QuantizedU8) -> torch.Tensor:
     return torch.sqrt(torch.clamp_min(d2, 0.0))
 
 
-def _subbyte_scores(metric: str, q: QuantizedSubByte, v: QuantizedSubByte, d: int) -> torch.Tensor:
+def _subbyte_scores(metric: str, q: QuantizedSubByte, v: QuantizedSubByte, d: int,
+                    q_codes: torch.Tensor | None = None) -> torch.Tensor:
     # imported here: the kernel module builds on this module's exact products
     from cosdata_tpu_torch.ops.kernels.subbyte_scan import subbyte_scores
 
-    return subbyte_scores(metric, q, v, d)
+    return subbyte_scores(metric, q, v, d, q_codes)
 
 
 def dot_subbyte(q: QuantizedSubByte, v: QuantizedSubByte, d: int) -> torch.Tensor:
@@ -131,16 +132,19 @@ def cosine_float(q: QuantizedFloat, v: QuantizedFloat) -> torch.Tensor:
     return safe_div(dot_float(q, v), q.mags[:, None] * v.mags[None, :])
 
 
-def score(metric: str, kind: str, q, v, d: int) -> torch.Tensor:
+def score(metric: str, kind: str, q, v, d: int, q_codes: torch.Tensor | None = None) -> torch.Tensor:
     """Uniform (Q, N) similarity scores, higher is better (euclidean negated).
 
-    ``kind`` in {"u8", "subbyte", "float"}.
+    ``kind`` in {"u8", "subbyte", "float"}; ``q_codes``, for sub-byte
+    storage only, is the queries' unpacked codes
+    (``kernels.subbyte_scan.unpack_query_codes``) shared by the chunks of
+    one scan.
     """
     if metric in ("cosine", "dot"):
         if kind == "u8":
             return cosine_u8(q, v) if metric == "cosine" else dot_u8(q, v)
         if kind == "subbyte":
-            return _subbyte_scores(metric, q, v, d)
+            return _subbyte_scores(metric, q, v, d, q_codes)
         if kind == "float":
             return cosine_float(q, v) if metric == "cosine" else dot_float(q, v)
         raise ValueError(f"unknown storage kind {kind!r}")

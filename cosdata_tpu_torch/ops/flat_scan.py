@@ -30,6 +30,7 @@ from __future__ import annotations
 import torch
 
 from cosdata_tpu_torch.ops import distance as D
+from cosdata_tpu_torch.ops.kernels.subbyte_scan import unpack_query_codes
 from cosdata_tpu_torch.ops.kernels.u8_scan import u8_bin_max_from_store
 from cosdata_tpu_torch.ops.quantize import QuantizedU8, quantize_u8
 from cosdata_tpu_torch.ops.storage import cos_or_dot, exact_scores, quantize_batch
@@ -172,8 +173,10 @@ def flat_scan_topk(metric: str, kind: str, d: int, k: int, chunk: int, q, store,
     b = q.mags.shape[0]
     top_s = torch.full((b, k), NEG_INF, dtype=torch.float32, device=valid.device)
     top_i = torch.full((b, k), -1, dtype=torch.int64, device=valid.device)
+    # sub-byte queries are unpacked once, for every chunk's K2 product
+    q_codes = unpack_query_codes(q.planes) if kind == "subbyte" else None
     for start in range(0, capacity, chunk):
-        scores = D.score(metric, kind, q, _slice_store(store, kind, start, chunk), d)  # (B, chunk)
+        scores = D.score(metric, kind, q, _slice_store(store, kind, start, chunk), d, q_codes)  # (B, chunk)
         scores = torch.where(valid[None, start : start + chunk], scores, NEG_INF)
         c_s, c_i = torch.topk(scores, min(k, chunk), dim=1)
         del scores

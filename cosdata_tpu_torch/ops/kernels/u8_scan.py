@@ -32,7 +32,8 @@ from cosdata_tpu_torch.ops.quantize import QuantizedU8
 
 LIBRARY = CudaLibrary(
     "u8_bin_max",
-    [ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p],
+    {"launch": [ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                                                         ctypes.c_void_p]},
 )
 #: the kernel's bin width (one warp) and its Dp granularity
 KERNEL_GROUP = 32
@@ -130,8 +131,9 @@ def _check_cuda_args(metric: str, group: int, t: BinMaxTerms) -> None:
                 f"{name}: want {dtype} {shape} contiguous on {dev}, "
                 f"got {x.dtype} {tuple(x.shape)} on {x.device}"
             )
-    if t.q_codes.data_ptr() % 16 or t.codes.data_ptr() % 16:
-        raise ValueError("code tensors must be 16-byte aligned")
+    for name in ("q_codes", "codes", "v_add", "v_inv", "v_sink"):  # TMA and bulk-copy sources
+        if getattr(t, name).data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
 
 
 def u8_bin_max(metric: str, group: int, t: BinMaxTerms) -> torch.Tensor:

@@ -122,6 +122,65 @@ def test_cpu_wrapper_takes_plain_version_on_chunk_views(pair):
     assert K.subbyte_code_scores.launches == before == 0
 
 
+def test_cpu_query_unpack_is_word_major_and_shared_by_chunks(pair):
+    """unpack_query_codes on CPU tensors is word_major_codes (no launch);
+    passing its codes to every chunk's wrapper call, as the chunked scan
+    does, gives the plain version's dots."""
+    res, q, store = pair
+    qp, planes = _planes(q), _planes(store)
+    launches = (K.unpack_query_codes.launches, K.subbyte_code_scores.launches)
+    q_codes = K.unpack_query_codes(qp)
+    assert q_codes.dtype == torch.int8 and q_codes.shape == (B, D_PAD)
+    np.testing.assert_array_equal(q_codes.numpy(), K.word_major_codes(qp).numpy())
+    for rows in (slice(0, 128), slice(128, 256)):
+        got = K.subbyte_code_scores(qp, planes[:, rows], D_PAD, q_codes)
+        np.testing.assert_array_equal(got.numpy(), K.subbyte_code_scores_plain(qp, planes[:, rows], D_PAD).numpy())
+    assert (K.unpack_query_codes.launches, K.subbyte_code_scores.launches) == launches == (0, 0)
+
+
+@pytest.mark.parametrize("chunk", [False, True], ids=["whole", "chunk"])
+@pytest.mark.parametrize("d_pad, d_true", [(128, 100), (768, 768)])
+@pytest.mark.parametrize("res", [1, 2, 3])
+def test_word_major_codes_give_the_plain_dots(res, d_pad, d_true, chunk):
+    """The kernel's unpack order: both sides word-major (position w*32 + i
+    holds bit i of word w, dimension i*W + w) give the code dots bit for bit,
+    against the plain version and the Pallas kernel in interpret mode, on the
+    whole store and on a row chunk of it (a strided view of its planes)."""
+    rng = np.random.default_rng(100 * res + d_pad)
+    x = rng.uniform(-1.2, 1.2, size=(C, d_pad)).astype(np.float32)
+    qx = rng.uniform(-1.2, 1.2, size=(B, d_pad)).astype(np.float32)
+    store = JQ.quantize_subbyte(jnp.asarray(x), res, d_true)
+    q = JQ.quantize_subbyte(jnp.asarray(qx), res, d_true)
+    rows = slice(64, 192) if chunk else slice(None)
+    planes = _planes(store)[:, rows]
+    assert chunk == (planes.shape[1] < C) and (res == 1 or not chunk or not planes.is_contiguous())
+    got = TD.code_matmul(K.word_major_codes(_planes(q)), K.word_major_codes(planes))
+    assert got.dtype == torch.int32 and got.shape == (B, planes.shape[1])
+    np.testing.assert_array_equal(got.numpy(), K.subbyte_code_scores_plain(_planes(q), planes, d_pad).numpy())
+    want = np.asarray(pallas_code_scores(
+        JQ.subbyte_values(q.planes, d_pad), store.planes[:, rows], d_pad, block=128, interpret=True
+    ))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("res", [1, 2, 3])
+def test_kernel_unpack_arithmetic(res):
+    """The CUDA unpack's arithmetic, modelled in numpy: each nibble of a
+    plane word times 0x00204081, masked with 0x01010101, spreads its bit k
+    to byte k; the planes OR in at their weights (plane 0 is the MSB). It
+    must give word_major_codes' bytes, bit 31 included."""
+    words = np.random.default_rng(res).integers(0, 1 << 32, size=(res, 5, 7), dtype=np.uint64)
+    words[:, 0, 0] = 0xFFFFFFFF
+    nib = (words[..., None] >> (4 * np.arange(8, dtype=np.uint64))) & 0xF  # (res, n, W, 8)
+    spread = (nib * 0x00204081) & 0x01010101
+    lanes = np.zeros(spread.shape[1:], np.uint64)
+    for p in range(res):
+        lanes |= spread[p] << (res - 1 - p)
+    got = lanes.astype("<u4").view(np.uint8).reshape(5, 7 * 32)  # little-endian: byte k is code 4g + k
+    planes = torch.from_numpy(words.astype(np.uint32).view(np.int32))
+    np.testing.assert_array_equal(got.astype(np.int8), K.word_major_codes(planes).numpy())
+
+
 @pytest.mark.parametrize("metric", ["cosine", "dot"])
 def test_float_scores(metric):
     x, qx = _rows(C, seed=4), _rows(B, seed=5)

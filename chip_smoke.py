@@ -1,6 +1,7 @@
 """Chip smoke of the PyTorch/CUDA port: dense exact-scan search at 1M x 768,
 u8 and sub-byte, the serving stack (REST, restart, gRPC) over it, then
-sparse search at 500,000 docs and dense + sparse hybrid search.
+sparse search at 500,000 docs, dense + sparse hybrid search, BM25
+full-text search at 100,000 docs and dense + text hybrid search.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -37,9 +38,19 @@ against RRF of the two legs, GET by id, a streamed delete, a restart
 answering identically and gRPC sparse search equal to REST's; 15 hybrid
 search at 100,000 docs (a u8 dense leg on K1, a sparse leg on the head
 engine) through Collection.hybrid_search_batch and /search/batch-hybrid,
-held against RRF of the legs. K1 and K2 launch counts are read around each
-path. Any failure exits non-zero. The last line is one JSON object naming
-the device.
+held against RRF of the legs; 16 the BM25 engine at the reference's bench
+scale (100,000 docs of 40 zipf words): ingest, first search, b64/b256/b1
+search, recall against the index's exhaustive oracle and against a
+brute-force Σ idf·tf computed on the card from its postings, a profile of
+a b256 search, then dense + text hybrid search (a u8 dense leg on K1 over
+100,000 rows) held against RRF of the legs; 17 a collection with a dense
+and a tf-idf index written over REST (16,384 rows with texts in one
+transaction), tf-idf, batch-tf-idf, hybrid and batch-hybrid searches equal
+to the direct Collection calls, a text read back, a streamed delete, a
+restart answering identically, gRPC tf-idf search equal to REST's, and the
+restarted scan-only dense index served above its serving limit. K1 and K2
+launch counts are read around each path. Any failure exits non-zero. The
+last line is one JSON object naming the device.
 """
 
 from __future__ import annotations
@@ -59,16 +70,24 @@ import time
 import numpy as np
 import torch
 
-from cosdata_tpu_torch.config import load_config
-from cosdata_tpu_torch.core.app_context import AppContext
-from cosdata_tpu_torch.core.collection import DenseIndexHandle, tune_dense_range
-from cosdata_tpu_torch.core.fusion import rrf_fuse
-from cosdata_tpu_torch.indexes.flat import FlatIndex
-from cosdata_tpu_torch.indexes.inverted import InvertedIndex
-from cosdata_tpu_torch.ops import sparse_kernels
-from cosdata_tpu_torch.ops.kernels import subbyte_scan, u8_scan
-from cosdata_tpu_torch.ops.quantize import quantize_subbyte, quantize_u8
-from cosdata_tpu_torch.tools.measure import bound, card_line, clustered, cuda_ms, device_ms
+#: packages the port's serving stack and text pipeline import
+REQUIRED = ("aiohttp", "msgpack", "grpc", "xxhash")
+try:
+    from cosdata_tpu_torch.config import load_config
+    from cosdata_tpu_torch.core.app_context import AppContext
+    from cosdata_tpu_torch.core.collection import DenseIndexHandle, tune_dense_range
+    from cosdata_tpu_torch.core.fusion import rrf_fuse
+    from cosdata_tpu_torch.indexes.flat import FlatIndex
+    from cosdata_tpu_torch.indexes.inverted import InvertedIndex
+    from cosdata_tpu_torch.indexes.tf_idf import TFIDFIndex
+    from cosdata_tpu_torch.ops import sparse_kernels
+    from cosdata_tpu_torch.ops.kernels import subbyte_scan, u8_scan
+    from cosdata_tpu_torch.ops.quantize import quantize_subbyte, quantize_u8
+    from cosdata_tpu_torch.text.processing import process_text_query
+    from cosdata_tpu_torch.tools.measure import bound, card_line, clustered, cuda_ms, device_ms
+    from cosdata_tpu_torch.tools.profile_dense import device_us
+except ModuleNotFoundError as err:
+    raise SystemExit(f"FAIL: 0 environment: module {err.name} is missing ({err})") from err
 
 SEED = 0
 N, DIM, NQ = 1_000_000, 768, 4096
@@ -87,6 +106,10 @@ N_SP, VOCAB_SP, NNZ_SP, NNZ_Q, SEED_SP = 500_000, 30_000, 64, 24, 7
 #: the reference's hybrid section (bench.py:962-1070): docs, sparse seed;
 #: phase 14 serves the first N_SP_REST of its rows over REST
 N_HY, SEED_HY, N_SP_REST = 100_000, 13, 16_384
+#: the reference's BM25 bench corpus (bench.py:638-714): docs, vocabulary,
+#: words per doc, words per query (a doc's rarest), seed; phase 17 serves
+#: the first N_SP_REST docs over REST
+N_BM, VOCAB_BM, WORDS_BM, QWORDS_BM, SEED_BM = 100_000, 20_000, 40, 6, 9
 
 
 def fail(msg: str) -> None:
@@ -1025,6 +1048,317 @@ def hybrid_phase(x, q, hy_dims, hy_vals, dev, card: str) -> int:
     return launches
 
 
+def bm25_corpus() -> tuple[list[str], np.ndarray]:
+    """bench.py's BM25 corpus: words w0..w19999, pareto(1.1) ids mod the
+    vocabulary, WORDS_BM per doc; returns the texts and the (N_BM,
+    WORDS_BM) word ids."""
+    rng = np.random.default_rng(SEED_BM)
+    ids = (rng.pareto(1.1, size=N_BM * WORDS_BM).astype(np.int64) % VOCAB_BM).reshape(N_BM, WORDS_BM)
+    words = [f"w{i}" for i in range(VOCAB_BM)]
+    return [" ".join(words[w] for w in row) for row in ids.tolist()], ids
+
+
+def bm25_queries(ids: np.ndarray, rows) -> list[str]:
+    """Each query is a doc's QWORDS_BM rarest (highest-id) words."""
+    return [" ".join(f"w{w}" for w in np.sort(ids[j])[-QWORDS_BM:]) for j in rows]
+
+
+class BruteBM25:
+    """Exact BM25 scores on the card from an index's host postings,
+    independent of its device layout: Σ over a query's terms of idf·tf,
+    the idf over live documents (f32, as the index computes it), the query
+    as a dense row over the terms gathered by every live posting."""
+
+    def __init__(self, tfi: TFIDFIndex, dev):
+        terms = sorted(tfi._postings)
+        self.col = {t: i for i, t in enumerate(terms)}
+        docs = np.concatenate([np.asarray(tfi._postings[t], np.int64) for t in terms])
+        term_idx = np.repeat(np.arange(len(terms)), [len(tfi._postings[t]) for t in terms])
+        tfs = np.concatenate([np.asarray(tfi._tfs[t], np.float32) for t in terms])
+        live = tfi._alive[docs]
+        df = np.bincount(term_idx[live], minlength=len(terms))
+        n = tfi.live_documents
+        self.idf = np.log1p((n - df + 0.5) / (df + 0.5)).astype(np.float32)
+        self.docs = torch.as_tensor(docs[live], device=dev)
+        self.terms = torch.as_tensor(term_idx[live], device=dev)
+        self.tfs = torch.as_tensor(tfs[live], device=dev)
+        self.n_cap, self.dev, self.max_token_len = tfi.n_cap, dev, tfi.max_token_len
+
+    def scores(self, text: str) -> torch.Tensor:
+        """(n_cap,) exact scores, -inf where a doc holds no query term."""
+        row = np.zeros(len(self.idf), np.float32)
+        for t in process_text_query(text, self.max_token_len):
+            if t in self.col:
+                row[self.col[t]] = self.idf[self.col[t]]
+        q = torch.as_tensor(row, device=self.dev)[self.terms]
+        sc = torch.zeros(self.n_cap, device=self.dev).index_add_(0, self.docs, q * self.tfs)
+        hit = torch.zeros(self.n_cap, device=self.dev).index_add_(0, self.docs, (q > 0).float())
+        return torch.where(hit > 0, sc, float("-inf"))
+
+    def recall(self, queries: list[str], ids, k: int = 10) -> float:
+        """Tie-aware recall@k: a returned id counts when its exact score
+        reaches the k-th best (rtol 1e-5); a query matching fewer than k
+        docs counts those."""
+        hits = want = 0
+        for text, row in zip(queries, ids):
+            sc = self.scores(text)
+            m = min(k, int(torch.isfinite(sc).sum()))
+            if m == 0:
+                continue
+            kth = float(torch.topk(sc, m).values[-1])
+            got = torch.as_tensor([int(i) for i in row[:k] if i >= 0], dtype=torch.int64, device=self.dev)
+            hits += int((sc[got] >= kth - 1e-5 * abs(kth)).sum())
+            want += m
+        return hits / max(want, 1)
+
+
+def profile_top(fn, card: str, top: int = 5) -> None:
+    """One torch.profiler pass over ``fn``: its wall time, the device time
+    of its kernels, the busy share and the ``top`` kernels by device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(device_us(e) for e in kernels) / 1e3
+    print(f"  profile: wall {wall:.2f} ms (under the profiler), device {busy:.2f} ms, busy {busy / wall:.1%} "
+          f"[{card}]", flush=True)
+    for e in sorted(kernels, key=device_us, reverse=True)[:top]:
+        print(f"    {device_us(e) / 1e3:8.3f} ms  x{e.count:<4d} {e.key[:100]}", flush=True)
+
+
+def bm25_phase(x, q, docs: list[str], word_ids: np.ndarray, dev, card: str) -> int:
+    """Phase 16: the BM25 engine at 100,000 docs, then dense + text hybrid
+    over the same docs; returns K1's launches in the hybrid run."""
+    tfi = TFIDFIndex(dev, sample_threshold=256)
+    t0 = time.perf_counter()
+    for i, text in enumerate(docs):
+        tfi.add(i, text)
+    tfi.flush()
+    ingest = N_BM / (time.perf_counter() - t0)
+    queries = bm25_queries(word_ids, range(64))
+    t0 = time.perf_counter()
+    tfi.search(queries, 10)  # the first search builds the CSR, doc rows and head on the host, uploads them
+    print(f"ingest {ingest:.0f} docs/s (add + flush, host); first search {time.perf_counter() - t0:.2f} s; "
+          f"avgdl {tfi.average_document_length:.3f}, terms {len(tfi._term_sorted)}, n_cap {tfi.n_cap}, head terms "
+          f"{len(tfi._head_tidx)} [{card}]", flush=True)
+    if tfi._head_codes_dev is None:
+        fail("the BM25 dense head did not engage")
+    tensors = {"csr ids": tfi._csr_ids, "csr tfs": tfi._csr_vals, "doc terms": tfi._doc_terms_dev,
+               "doc tfs": tfi._doc_tfs_dev, "alive": tfi._alive_dev, "head codes": tfi._head_codes_dev}
+    off = [name for name, t in tensors.items() if t.device.type != dev.type]
+    if off:
+        fail(f"BM25 tensors off the card: {off}")
+    print("device bytes: " + ", ".join(f"{name} {t.numel() * t.element_size()} {tuple(t.shape)}"
+                                       for name, t in tensors.items()), flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    t64, (ids, _) = timed_search(lambda: tfi.search(queries, 10), reps=3)
+    t256, (ids4, _) = timed_search(lambda: tfi.search(queries * 4, 10), reps=3)
+    peak = torch.cuda.max_memory_allocated()
+    tfi.search([queries[0]], 10)  # warm the single-query shapes
+    ids1, lat1 = [], []
+    for text in queries[:8]:
+        t0 = time.perf_counter()
+        ids1.append(tfi.search([text], 10)[0][0])
+        lat1.append(time.perf_counter() - t0)
+    # the oracle: unbounded budgets, every tail posting rescored (bench.py's)
+    saved = (tfi.SCAN_BUDGET, tfi.MAX_TERM_POSTINGS)
+    tfi.SCAN_BUDGET, tfi.MAX_TERM_POSTINGS, tfi.EXHAUSTIVE = 1 << 30, 1 << 30, True
+    t_ex = time.perf_counter()
+    ids_ex, _ = tfi.search(queries, 10)
+    t_ex = time.perf_counter() - t_ex
+    tfi.SCAN_BUDGET, tfi.MAX_TERM_POSTINGS = saved
+    tfi.EXHAUSTIVE = False
+    brute = BruteBM25(tfi, dev)
+    rec_ex, rec_brute = overlap(ids, ids_ex), brute.recall(queries, ids)
+    rec_ex_brute, rec1 = brute.recall(queries, ids_ex), brute.recall(queries[:8], ids1)
+    self_hit = float(np.mean([j in set(map(int, ids[j])) for j in range(64)]))
+    # bench.py's tie-aware self-recall: doc j counts when it sits in a widened
+    # top-50 with a score at least the 10th-ranked one
+    ids50, sc50 = tfi.search(queries, 50)
+    tie_hits = sum(int(sc50[j][list(ids50[j]).index(j)] >= sc50[j][9] - 1e-4) for j in range(64) if j in ids50[j])
+    print(f"BM25 {N_BM} docs: b64 {t64 * 1e3:.2f} ms = {64 / t64:.1f} qps, b256 {t256 * 1e3:.2f} ms = "
+          f"{256 / t256:.1f} qps, b1 median {statistics.median(lat1) * 1e3:.2f} ms; peak allocated {peak} B [{card}]",
+          flush=True)
+    print(f"recall_vs_exact {rec_ex:.4f} (exhaustive oracle, {t_ex:.2f} s), {rec_brute:.4f} (brute-force Σ idf·tf; "
+          f"the oracle itself {rec_ex_brute:.4f}), b1 {rec1:.4f}; b256 rows equal b64's "
+          f"{bool((ids4[:64] == ids).all())}; self_recall {self_hit:.3f}, tie-aware {tie_hits / 64:.3f}", flush=True)
+    for name, r in (("recall_vs_exact", rec_ex), ("recall against brute force", rec_brute), ("b1 recall", rec1)):
+        if r < MIN_RECALL:
+            fail(f"BM25 {name} {r:.4f} < {MIN_RECALL}")
+    profile_top(lambda: tfi.search(queries * 4, 10), card)
+    del brute
+
+    # dense + text hybrid: a u8 handle over phase 3's first N_BM rows (one
+    # K1 scan chunk and more), the text leg on this index
+    with tempfile.TemporaryDirectory(prefix="cosdata_smoke_") as data_dir:
+        ctx = AppContext(load_config(data_path=data_dir), admin_key=ADMIN_KEY, device=dev)
+        coll = ctx.create_collection({"name": "bm25hy", "dense_vector": {"enabled": True, "dimension": DIM},
+                                      "tf_idf_options": {"enabled": True}})
+        lo, hi = tune_dense_range(x[:1000].cpu().numpy())
+        coll.create_dense_index(quantization={"type": "scalar", "data_type": "u8", "range": {"min": lo, "max": hi}})
+        for s in range(0, N_BM, ADD_BATCH):
+            e = min(s + ADD_BATCH, N_BM)
+            coll.dense.add_batch(list(range(s, e)), x[s:e])
+        coll.tfidf = tfi
+        coll.raw = {i: {"id": i, "document_id": None} for i in range(N_BM)}
+        hq_dense = np.concatenate([q[:64].cpu().numpy()] * 4)
+        hq_text = queries * 4
+        hybrid = [{"query_vector": hq_dense[j], "query_text": hq_text[j]} for j in range(256)]
+        reset_counts()
+        t_hy, res = timed_search(lambda: coll.hybrid_search_batch(hybrid, top_k=10), reps=3)
+        launches = u8_scan.u8_bin_max.launches
+        fused, _ = rows_of(res)
+        d_ids, _ = coll.dense.search(hq_dense, 30)
+        t_ids, _ = tfi.search(hq_text, top_k=30)
+        fuse = fusion_match(fused, rrf_fuse([d_ids, t_ids], 10, 30)[0])
+        self_hit = float(np.mean([(j % 64) in set(map(int, fused[j])) for j in range(256)]))
+        print(f"dense + text hybrid {N_BM} docs, Collection.hybrid_search_batch b256: {t_hy * 1e3:.2f} ms = "
+              f"{256 / t_hy:.1f} qps; fusion_vs_oracle {fuse:.4f}; self_recall {self_hit:.3f}; dense capacity "
+              f"{coll.dense.index.cap}; u8_bin_max launches {launches} [{card}]", flush=True)
+        ctx.close()
+    if fuse < MIN_RECALL:
+        fail(f"dense + text fusion_vs_oracle {fuse:.4f} < {MIN_RECALL}")
+    if launches == 0:
+        fail("the dense + text hybrid's dense leg never launched u8_bin_max")
+    return launches
+
+
+def bm25_rest_phase(data_dir: str, x_hy: np.ndarray, q_rest: np.ndarray, docs: list[str], word_ids: np.ndarray,
+                    dev, card: str) -> int:
+    """Phase 17: dense + text written over REST, tf-idf and hybrid searched
+    against the direct calls, a text read back, a streamed delete, then the
+    restart, gRPC and the scan-only reload; returns K1's launches."""
+    n = N_SP_REST
+    ctx = AppContext(load_config(data_path=data_dir), admin_key=ADMIN_KEY, device=dev)
+    server = RestServer(ctx)
+    client = RestClient(server.port)
+    client.login()
+    c = "/vectordb/collections/bmrest"
+    client.ok("POST", "/vectordb/collections", {
+        "name": "bmrest", "dense_vector": {"enabled": True, "dimension": DIM}, "tf_idf_options": {"enabled": True},
+    })
+    client.ok("POST", c + "/indexes/dense", {"name": "bmrest_dense", "distance_metric_type": "cosine",
+                                             "quantization": {"type": "auto"}})
+    client.ok("POST", c + "/indexes/tf-idf", {"name": "bmrest_text", "sample_threshold": 256})
+    rows = x_hy.tolist()
+    t0 = time.perf_counter()
+    txn = client.ok("POST", c + "/transactions", {})["transaction_id"]
+    for s in range(0, n, UPSERT_ROWS):
+        client.ok("POST", f"{c}/transactions/{txn}/upsert", {"vectors": [
+            {"id": i, "dense_values": rows[i], "text": docs[i]} for i in range(s, s + UPSERT_ROWS)
+        ]})
+    client.ok("POST", f"{c}/transactions/{txn}/commit", {})
+    while (st := client.ok("GET", f"{c}/transactions/{txn}/status"))["status"] != "complete":
+        if time.perf_counter() - t0 > 600:
+            fail(f"the transaction did not complete: {st}")
+        time.sleep(0.2)
+    print(f"REST ingest of {n} x ({DIM} dense + a {WORDS_BM}-word text) in {n // UPSERT_ROWS} requests: "
+          f"{time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+    coll = ctx.get_collection("bmrest")
+    queries = bm25_queries(word_ids, range(64))
+    hybrid = [{"query_vector": q_rest[j].tolist(), "query_text": queries[j]} for j in range(64)]
+    reset_counts()
+
+    def answers(cl) -> dict:
+        out = cl.ok("POST", c + "/search/batch-tf-idf", {"queries": queries, "top_k": 10})
+        text = rows_of([r["results"] for r in out["responses"]])
+        one = rows_of([cl.ok("POST", c + "/search/tf-idf", {"query": t, "top_k": 10})["results"]
+                       for t in queries[:8]])
+        out = cl.ok("POST", c + "/search/batch-hybrid", {"queries": hybrid, "top_k": 10})
+        hy = rows_of([r["results"] for r in out["responses"]])
+        hy_one = rows_of([cl.ok("POST", c + "/search/hybrid", {**hybrid[j], "top_k": 10})["results"]
+                          for j in range(4)])
+        return {"text": text, "one": one, "hybrid": hy, "hybrid_one": hy_one}
+
+    def same(a, b) -> bool:
+        return bool((a[0] == b[0]).all() and np.allclose(a[1], b[1], rtol=1e-6, atol=0))
+
+    first = answers(client)
+    # the same batches as the requests (the scan budget depends on the batch)
+    direct = {
+        "text": rows_of(coll.search_tfidf(queries, 10)),
+        "one": rows_of([coll.search_tfidf([t], 10)[0] for t in queries[:8]]),
+        "hybrid": rows_of(coll.hybrid_search_batch(hybrid, 10)),
+        "hybrid_one": rows_of([coll.hybrid_search(hybrid[j], 10) for j in range(4)]),
+    }
+    equal_direct = {k: same(first[k], direct[k]) for k in first}
+    brute = BruteBM25(coll.tfidf, dev)
+    rec, rec1 = brute.recall(queries, first["text"][0]), brute.recall(queries[:8], first["one"][0])
+    d_ids, _ = coll.dense.search(np.asarray(q_rest[:64], np.float32), 30)
+    t_ids, _ = coll.tfidf.search(queries, top_k=30)
+    fuse = fusion_match(first["hybrid"][0], rrf_fuse([d_ids, t_ids], 10, 30)[0])
+    probe = n // 2 + 1
+    rec_get = client.ok("GET", f"{c}/vectors/{probe}")
+    raw = client.ok("POST", c + "/search/tf-idf", {"query": queries[5], "top_k": 3, "return_raw_text": True})
+    texts_ok = rec_get.get("text") == docs[probe] and all(r["text"] == docs[r["id"]] for r in raw["results"])
+    victim = int(first["one"][0][0, 0])
+    client.ok("DELETE", f"{c}/streaming/vectors/{victim}")
+    res = client.ok("POST", c + "/search/tf-idf", {"query": queries[0], "top_k": 10})["results"]
+    if victim in [r["id"] for r in res]:
+        fail(f"streamed delete of {victim}: it came back for its own words")
+    before = answers(client)
+    print(f"REST equals the direct Collection calls {equal_direct}; tf-idf recall@10 against brute force: "
+          f"/batch-tf-idf (64) {rec:.4f}, /tf-idf (8 single) {rec1:.4f}; /batch-hybrid ids = RRF of the legs "
+          f"{fuse:.4f}; GET /vectors/{probe} and return_raw_text give the written texts {texts_ok}; streamed delete "
+          f"of {victim}: ok [{card}]", flush=True)
+    if not all(equal_direct.values()):
+        fail(f"REST answers differ from the direct Collection calls: {equal_direct}")
+    if not texts_ok:
+        fail("a text read back differs from the written one")
+    for name, r in (("/batch-tf-idf recall", rec), ("/tf-idf recall", rec1), ("hybrid fusion match", fuse)):
+        if r < MIN_RECALL:
+            fail(f"phase 17 {name} {r:.4f} < {MIN_RECALL}")
+    client.close()
+    server.close()
+    ctx.close()
+
+    t0 = time.perf_counter()
+    ctx = AppContext(load_config(data_path=data_dir), admin_key=ADMIN_KEY, device=dev)
+    t_load = time.perf_counter() - t0
+    server = RestServer(ctx)
+    client = RestClient(server.port)
+    client.login()
+    after = answers(client)
+    same_after = {k: bool((after[k][0] == before[k][0]).all() and (after[k][1] == before[k][1]).all())
+                  for k in after}
+    status, _ = client.call("GET", f"{c}/vectors/{victim}")
+    from cosdata_tpu_torch.grpc_api import vector_service_pb2 as pb
+
+    grpc_ids, _ = grpc_find(ctx, [pb.FindSimilarVectorsRequest(
+        collection_id="bmrest", tf_idf=pb.FindSimilarTFIDFDocumentQuery(query=t, top_k=10),
+    ) for t in queries[:8]])
+    grpc_same = grpc_ids == [[int(i) for i in row if i >= 0] for row in after["one"][0]]
+    # the restarted dense index came from the port's scan-only snapshot: it
+    # serves above its serving limit, by the scan, with the same answers
+    dense = ctx.get_collection("bmrest").dense
+    dense.flat_serve_threshold = dense.graph_filter_min = n // 4
+    scan = answers(client)
+    same_scan = all(bool((scan[k][0] == after[k][0]).all() and (scan[k][1] == after[k][1]).all()) for k in scan)
+    launches = u8_scan.u8_bin_max.launches
+    print(f"after restart ({t_load:.1f} s): identical ids and scores {same_after}; deleted {victim} answers HTTP "
+          f"{status}; gRPC FindSimilarVectors (tf_idf) x8: ids equal REST's {grpc_same}; scan-only dense index "
+          f"(flat_serve_threshold {dense.flat_serve_threshold} < {dense.index.n} rows, scan_only "
+          f"{dense.index.scan_only}): identical answers {same_scan}; u8_bin_max launches in phase 17: {launches} "
+          f"(dense capacity {dense.index.cap}, below one scan chunk: the plain scan) [{card}]", flush=True)
+    client.close()
+    server.close()
+    ctx.close()
+    if not all(same_after.values()):
+        fail("the restarted context answered tf-idf or hybrid queries differently")
+    if status != 404:
+        fail(f"the deleted vector came back after the restart (HTTP {status})")
+    if not grpc_same:
+        fail(f"gRPC tf-idf ids differ from REST's: {grpc_ids} vs {after['one'][0]}")
+    if not same_scan:
+        fail("the scan-only dense index answered differently above its serving limit")
+    return launches
+
+
 def launches_per_batch(kernels, search) -> list[int]:
     """The launches of each of ``kernels`` in one b1024 search of the main path."""
     reset_counts()
@@ -1046,9 +1380,12 @@ def main() -> None:
     nvcc = subprocess.run(["/usr/local/cuda/bin/nvcc", "--version"], capture_output=True, text=True)
     print(f"torch {torch.__version__}, cuda {torch.version.cuda}, nvcc: {nvcc.stdout.strip().splitlines()[-1]}")
     print(f"device: {torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
-    # xxhash and nltk: the reference's BM25 text pipeline (not ported yet)
-    for mod in ("aiohttp", "msgpack", "grpc", "xxhash", "nltk"):
+    # nltk: the reference's stemmer, which the port does not need
+    for mod in (*REQUIRED, "nltk"):
         print(f"package {mod}: {'present' if importlib.util.find_spec(mod) else 'absent'}")
+    missing = [mod for mod in REQUIRED if importlib.util.find_spec(mod) is None]
+    if missing:
+        fail(f"packages the port needs are missing: {missing}")
 
     phase("1 build u8_bin_max and subbyte_code_scores")
     t0 = time.perf_counter()
@@ -1134,6 +1471,19 @@ def main() -> None:
     phase(f"15 hybrid served at {N_HY} docs")
     k1_hybrid = hybrid_phase(x, q, hy_dims, hy_vals, dev, card)
     launches += k1_hy_rest + k1_hybrid
+    del hy_dims, hy_vals
+
+    phase(f"16 BM25 engine at {N_BM} docs")
+    t0 = time.perf_counter()
+    bm_docs, bm_ids = bm25_corpus()
+    print(f"corpus {N_BM} docs x {WORDS_BM} words, vocabulary {VOCAB_BM}, in {time.perf_counter() - t0:.1f} s")
+    k1_bm25 = bm25_phase(x, q, bm_docs, bm_ids, dev, card)
+    torch.cuda.empty_cache()
+
+    phase(f"17 BM25 and dense + text hybrid over REST and gRPC at {N_SP_REST} rows")
+    with tempfile.TemporaryDirectory(prefix="cosdata_smoke_") as data_dir:
+        k1_bm_rest = bm25_rest_phase(data_dir, x_hy, q_rest, bm_docs, bm_ids, dev, card)
+    launches += k1_bm25 + k1_bm_rest
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
     print(card)

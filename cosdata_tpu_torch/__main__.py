@@ -1,12 +1,14 @@
 """CLI entry point:
-``python -m cosdata_tpu_torch --device cuda --admin-key KEY [--config path]``.
+``python -m cosdata_tpu_torch --admin-key KEY [--device cuda] [--config path]``.
 
 Mirrors upstream src/main.rs:29-53 + src/args.rs:5-15.
 
 Port of ``cosdata_tpu/__main__.py``. ``--device`` (``cuda``, ``cuda:N`` or
-``cpu``) is required and has no default: the server never picks a device
-on its own, and a CUDA device serves every dense search through the
-hand-written kernels. The reference's device warm-up is not ported.
+``cpu``) defaults to ``cuda``: the server runs on the card unless asked for
+the CPU with ``--device cpu``, and refuses ``cuda`` when torch sees no card
+(it never moves to the CPU on its own). A CUDA device serves every dense
+search through the hand-written kernels. The reference's device warm-up is
+not ported.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from pathlib import Path
 def main():
     parser = argparse.ArgumentParser("cosdata_tpu_torch")
     parser.add_argument(
-        "--device", required=True, help="torch device of every index: cuda, cuda:N or cpu (required)"
+        "--device", default="cuda", help="torch device of every index: cuda (the default), cuda:N or cpu"
     )
     parser.add_argument("--admin-key", required=True, help="admin key (required)")
     parser.add_argument("--config", default="config.toml", help="TOML config path")

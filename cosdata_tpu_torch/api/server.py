@@ -27,9 +27,8 @@ same role, web_server.rs:48).
 Port of ``cosdata_tpu/api/server.py``. Changed from the reference: a route
 this port does not serve yet raises ``NotImplementedError``, which answers
 501 with the message naming its ROADMAP item (the reference's middleware
-would map it, a ``RuntimeError``, to 409 Conflict); the tf-idf (BM25)
-index and searches, a hybrid query with a ``query_text`` leg and the
-graph's ``/neighbors`` are such routes.
+would map it, a ``RuntimeError``, to 409 Conflict); the graph's
+``/neighbors`` is such a route.
 """
 
 from __future__ import annotations
@@ -428,6 +427,8 @@ class Server:
     async def search_tfidf(self, request):
         body = await request.json()
         coll = await self._coll_at_version(request, body)
+        if coll.tfidf is None:
+            raise KeyError("tf-idf index not found")
         results = await _run(
             request,
             coll.search_tfidf,
@@ -442,6 +443,8 @@ class Server:
     async def search_batch_tfidf(self, request):
         body = await request.json()
         coll = await self._coll(request)
+        if coll.tfidf is None:
+            raise KeyError("tf-idf index not found")
         queries = body["queries"]
         # DTO parity: queries is Vec<String> (search/dtos.rs:136-141) —
         # serde would reject non-strings with 400, not surface a 500

@@ -7,10 +7,11 @@ SHA-256) and the indexing manager.
 
 Port of ``cosdata_tpu/core/app_context.py``. Changed from the reference:
 the context takes the ``device`` every collection's indexes live on; a
-stored collection that holds a not-ported index (tf-idf) is not loaded
-with that index dropped: it stays out of ``collections`` and
-``get_collection`` raises ``NotImplementedError`` with the reason (HTTP
-501); ``close()`` stops the epoch timer and drains background indexing.
+stored collection that holds what the port cannot load (a sharded dense
+snapshot, codes spilled to the host) is not loaded with that part
+dropped: it stays out of ``collections`` and ``get_collection`` raises
+``NotImplementedError`` with the reason (HTTP 501); ``close()`` stops the
+epoch timer and drains background indexing.
 """
 
 from __future__ import annotations

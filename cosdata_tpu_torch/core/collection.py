@@ -3,16 +3,16 @@
 ``Collection`` owns a collection's id maps, slim per-vector records,
 transactions (explicit, WAL-buffered and indexed in the background;
 implicit, streamed and indexed inline), versions and snapshots, its dense
-index and its sparse inverted index, and hybrid (dense + sparse)
-reciprocal-rank fusion. ``DenseIndexHandle`` sits below it: every REST and
-gRPC dense search ends in its ``search``. It keeps the sample-then-configure
-protocol (quantization "auto" buffers ``sample_threshold`` rows, tunes the
-u8 range on them, then builds), the engine routing and flush-time
-compaction. u8, sub-byte (binary, quaternary, octal), f16 and f32 storage
-with cosine or dot are ported; every route that needs the graph, and the
-tf-idf (BM25) index, its search and a hybrid query's text leg, raise
-``NotImplementedError`` naming their ROADMAP item. Every tensor lives on
-the ``device`` the collection was given.
+index, its sparse inverted index and its tf-idf (BM25) index, and hybrid
+reciprocal-rank fusion of any two of the dense, sparse and text legs.
+``DenseIndexHandle`` sits below it: every REST and gRPC dense search ends
+in its ``search``. It keeps the sample-then-configure protocol
+(quantization "auto" buffers ``sample_threshold`` rows, tunes the u8 range
+on them, then builds), the engine routing and flush-time compaction. u8,
+sub-byte (binary, quaternary, octal), f16 and f32 storage with cosine or
+dot are ported; every route that needs the graph raises
+``NotImplementedError`` naming its ROADMAP item. Every tensor lives on the
+``device`` the collection was given.
 """
 
 from __future__ import annotations
@@ -31,16 +31,11 @@ from cosdata_tpu_torch.core.transaction import (
 )
 from cosdata_tpu_torch.indexes.hnsw import HNSWIndex, HNSWParams
 from cosdata_tpu_torch.indexes.inverted import InvertedIndex
+from cosdata_tpu_torch.indexes.tf_idf import TFIDFIndex
 from cosdata_tpu_torch.ops.storage import SUBBYTE_ALIAS
 from cosdata_tpu_torch.store.meta import MetaStore
 from cosdata_tpu_torch.store.versioning import VersionControl
 from cosdata_tpu_torch.store.wal import OP_DELETE, OP_UPSERT, read_wal
-
-#: the answer of every tf-idf route and of a hybrid query's text leg
-BM25_NOT_PORTED = (
-    "tf-idf (BM25) indexes and search, and the hybrid query_text leg, are "
-    "not ported yet (ROADMAP queue 1: BM25 and the text leg)"
-)
 
 
 def tune_dense_range(values, clamp_margin_percent: float = 1.0):
@@ -258,6 +253,8 @@ class DenseIndexHandle:
         raw = idx.store.raw_rows(rows)
         old_fields = {f: [lst[r] for r in rows] for f, lst in self.field_rows.items()}
         self._build(initial_capacity=len(internals))
+        # the rebuilt store has no graph either: a scan-only index stays one
+        self.index.scan_only = idx.scan_only
         self.index.add(raw)
         self.row_of = {iid: i for i, iid in enumerate(internals)}
         self.internal_of = list(internals)
@@ -272,10 +269,15 @@ class DenseIndexHandle:
     def search(self, queries, top_k: int, ef: int | None = None, row_mask: np.ndarray | None = None):
         """Returns host (internal_ids (B, k), scores (B, k)); -1 padded.
 
-        ``row_mask``: boolean filter over store rows (metadata filtering)."""
+        ``row_mask``: boolean filter over store rows (metadata filtering).
+        A scan-only index (loaded from a snapshot without a graph) takes the
+        exact scan at any size, masked or not, as the reference's does; any
+        other index above the serving limits needs the graph."""
         self.finalize_sampling()
         n = self.index.n
-        if row_mask is None:
+        if self.index.scan_only:
+            needs_graph = False
+        elif row_mask is None:
             needs_graph = n > self.flat_serve_threshold
         else:
             selectivity = float(row_mask.mean()) if len(row_mask) else 0.0
@@ -355,6 +357,8 @@ class Collection:
         self.dense: DenseIndexHandle | None = None
         self.sparse: InvertedIndex | None = None
         self.sparse_descriptor: dict | None = None
+        self.tfidf: TFIDFIndex | None = None
+        self.tfidf_descriptor: dict | None = None
 
         # transactions
         self.current_explicit: ExplicitTransaction | None = None
@@ -418,10 +422,24 @@ class Collection:
             self._persist_descriptors()
             return self.sparse_descriptor
 
-    def create_tf_idf_index(self, *args, **kwargs):
-        if not self.tf_idf_options.get("enabled"):
-            raise ValueError("tf-idf not enabled for this collection")
-        raise NotImplementedError(BM25_NOT_PORTED)
+    def create_tf_idf_index(self, k1: float = 1.2, b: float = 0.75, sample_threshold: int = 1000,
+                            scan_budget: int | None = None, scan_budget_total: int | None = None):
+        with self.lock:
+            if not self.tf_idf_options.get("enabled"):
+                raise ValueError("tf-idf not enabled for this collection")
+            if self.tfidf is not None:
+                raise ValueError("tf-idf index already exists")
+            self.tfidf = TFIDFIndex(
+                self.device, k1=k1, b=b, sample_threshold=sample_threshold,
+                scan_budget=scan_budget, scan_budget_total=scan_budget_total,
+            )
+            self.tfidf_descriptor = {"index_type": "tf_idf", "k1": k1, "b": b, "sample_threshold": sample_threshold}
+            if scan_budget is not None:
+                self.tfidf_descriptor["scan_budget"] = int(scan_budget)
+            if scan_budget_total is not None:
+                self.tfidf_descriptor["scan_budget_total"] = int(scan_budget_total)
+            self._persist_descriptors()
+            return self.tfidf_descriptor
 
     def _persist_descriptors(self):
         """Persist index configs (IndexOps::persist parity). No-op while
@@ -437,7 +455,10 @@ class Collection:
             elif index_type == "sparse":
                 self.sparse = None
                 self.sparse_descriptor = None  # else list/restart resurrect it
-            elif index_type != "tf-idf":
+            elif index_type == "tf-idf":
+                self.tfidf = None
+                self.tfidf_descriptor = None
+            else:
                 raise ValueError(f"unknown index type {index_type}")
             self._persist_descriptors()
 
@@ -447,6 +468,8 @@ class Collection:
             out.append(self.dense.descriptor)
         if self.sparse_descriptor:
             out.append(self.sparse_descriptor)
+        if self.tfidf_descriptor:
+            out.append(self.tfidf_descriptor)
         return out
 
     # ------------------------------------------------------- validation
@@ -657,6 +680,8 @@ class Collection:
                 if sp is not None and self.sparse is not None:
                     pairs = np.asarray(sp, np.float32).reshape(-1, 2)
                     self.sparse.add(iid, pairs[:, 0].astype(np.int64), pairs[:, 1])
+                if v.get("text") is not None and self.tfidf is not None:
+                    self.tfidf.add(iid, v["text"])
             if dense_batch:
                 ids = [i for i, _, _ in dense_batch]
                 arr = np.asarray([d for _, d, _ in dense_batch], np.float32)
@@ -680,6 +705,8 @@ class Collection:
                 self.dense.delete(iid)
             if self.sparse is not None:
                 self.sparse.delete(iid)
+            if self.tfidf is not None:
+                self.tfidf.delete(iid)
 
     def flush_indexes(self):
         with self.lock, self._engine_dispatch_lock:
@@ -687,6 +714,8 @@ class Collection:
                 self.dense.flush()
             if self.sparse is not None:
                 self.sparse.flush()
+            if self.tfidf is not None:
+                self.tfidf.flush()
 
     def save_snapshot(self):
         from cosdata_tpu_torch.store.snapshots import save_collection_state
@@ -848,8 +877,16 @@ class Collection:
         ids, scores = self._sparse_ids(query_terms_list, top_k, early_terminate_threshold)
         return self._format_results(ids, scores, return_raw_text)
 
-    def search_tfidf(self, *args, **kwargs):
-        raise NotImplementedError(BM25_NOT_PORTED)
+    def _tfidf_ids(self, queries, top_k):
+        """Internal (ids, scores) of the text leg; concurrent requests
+        coalesce into one engine call."""
+        return self._batcher(
+            "_tfidf_batcher", lambda qs, k: self.tfidf.search(qs, top_k=k)
+        ).search(list(queries), top_k)
+
+    def search_tfidf(self, queries, top_k=10, return_raw_text=False):
+        ids, scores = self._tfidf_ids(queries, top_k)
+        return self._format_results(ids, scores, return_raw_text)
 
     def hybrid_search(self, query: dict, top_k=10, fusion_constant_k=60.0, return_raw_text=False):
         """RRF fusion of two legs, each fetching 3*top_k
@@ -875,35 +912,39 @@ class Collection:
     def hybrid_search_batch(self, queries, top_k=10, fusion_constant_k=60.0, return_raw_text=False):
         """Batched hybrid: legs are regrouped across queries (all dense
         sub-queries in one engine call, the sparse ones by early-termination
-        threshold; search/repo.rs:343-555) and fused by the vectorized RRF
-        (core/fusion.py). Returns one result list per query. A query_text
-        leg raises ``NotImplementedError`` (BM25 is not ported)."""
+        threshold, all text sub-queries in one; search/repo.rs:343-555) and
+        fused by the vectorized RRF (core/fusion.py). Returns one result
+        list per query."""
         from cosdata_tpu_torch.core.fusion import rrf_fuse
 
         fetch = top_k * 3
         b = len(queries)
         dense_q, dense_slots = [], []
         sparse_groups: dict = {}  # threshold -> (queries, slots)
+        text_q, text_slots = [], []
         for i, query in enumerate(queries):
             keys = [kk for kk in ("query_vector", "query_terms", "query_text") if kk in query]
             if len(keys) != 2:
                 raise ValueError("hybrid query must combine two of query_vector/query_terms/query_text")
-            if "query_text" in keys:
-                raise NotImplementedError(BM25_NOT_PORTED)
             for leg_no, kk in enumerate(keys):
                 if kk == "query_vector":
                     dense_q.append(query["query_vector"])
                     dense_slots.append((i, leg_no))
-                else:
+                elif kk == "query_terms":
                     thr = query.get("sparse_early_terminate_threshold")
                     g = sparse_groups.setdefault(thr, ([], []))
                     g[0].append(query["query_terms"])
                     g[1].append((i, leg_no))
+                else:
+                    text_q.append(query["query_text"])
+                    text_slots.append((i, leg_no))
         jobs = []
         if dense_q:
             jobs.append(("dense", dense_q, dense_slots, None))
         for thr, (qs, slots) in sparse_groups.items():
             jobs.append(("sparse", qs, slots, thr))
+        if text_q:
+            jobs.append(("text", text_q, text_slots, None))
 
         def run_leg(job):
             kind, qs, slots, thr = job
@@ -911,8 +952,10 @@ class Collection:
                 ids, _ = self._batcher(
                     "_dense_batcher", lambda q, k: self.dense.search(q, k)
                 ).search(np.asarray(qs, np.float32), fetch)
-            else:
+            elif kind == "sparse":
                 ids, _ = self._sparse_ids(qs, fetch, thr)
+            else:
+                ids, _ = self._tfidf_ids(qs, fetch)
             return np.asarray(ids, np.int64), slots
 
         if not jobs:  # empty batch: nothing to fuse
@@ -938,9 +981,7 @@ class Collection:
 
     def restore_indexes_from_meta(self) -> None:
         """Recreate index handles from the persisted descriptors
-        (IndexOps::load_data role, indexes/mod.rs:176-213). A tf-idf
-        descriptor raises ``NotImplementedError``: the collection cannot be
-        served without that index."""
+        (IndexOps::load_data role, indexes/mod.rs:176-213)."""
         self._restoring = True
         try:
             self._restore_indexes_inner()
@@ -966,8 +1007,14 @@ class Collection:
                         scan_budget=desc.get("scan_budget"),
                         scan_budget_total=desc.get("scan_budget_total"),
                     )
-                elif t == "tf_idf":
-                    self.create_tf_idf_index()
+                elif t == "tf_idf" and self.tfidf is None:
+                    self.create_tf_idf_index(
+                        k1=desc.get("k1", 1.2),
+                        b=desc.get("b", 0.75),
+                        sample_threshold=desc.get("sample_threshold", 1000),
+                        scan_budget=desc.get("scan_budget"),
+                        scan_budget_total=desc.get("scan_budget_total"),
+                    )
             except ValueError:
                 pass  # index type disabled for this collection config
 

@@ -3,8 +3,9 @@
 The port has no graph yet. Rows go into the store along the reference's
 scan-only ingest route, and searches take the exact scan
 (:meth:`HNSWIndex.search_brute`), which is what ``DenseIndexHandle`` serves
-every unfiltered search with up to ``flat_serve_threshold`` rows. Graph
-build and graph search raise ``NotImplementedError``.
+every unfiltered search with up to ``flat_serve_threshold`` rows, and
+every search of an index loaded from a scan-only snapshot (``scan_only``),
+at any size. Graph build and graph search raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -70,6 +71,10 @@ class HNSWIndex:
         )
         self.alive = torch.ones((self.store.capacity,), dtype=torch.bool, device=self.store.device)
         self.n_deleted = 0
+        #: the rows came from a snapshot without a graph: the reference
+        #: serves such an index by the exact scan at any size and under any
+        #: filter, and so does the port
+        self.scan_only = False
 
     @property
     def n(self) -> int:

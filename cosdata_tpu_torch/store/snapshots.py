@@ -1,10 +1,10 @@
 """Versioned snapshot persistence for collections and their indexes.
 
 Port of ``cosdata_tpu/store/snapshots.py``: the id maps (``maps.msgpack`` +
-``maps.log``, copied), the dense part in torch and the sparse part. A
-checkpoint is an atomic .npz + msgpack snapshot plus chunked row arrays,
-written at flush points (txn indexing / epoch close); crash recovery
-between snapshots is WAL replay.
+``maps.log``, copied), the dense part in torch, and the sparse and tf-idf
+parts. A checkpoint is an atomic .npz + msgpack snapshot plus chunked row
+arrays, written at flush points (txn indexing / epoch close); crash
+recovery between snapshots is WAL replay.
 
 The on-disk layout is the reference's, so the two packages read each
 other's snapshots:
@@ -14,17 +14,19 @@ other's snapshots:
   ``planes`` (sub-byte, uint32 words) and ``raw`` arrays;
 - the port has no graph, so it writes ``scan_only: true`` and no graph
   files, which the reference's loader accepts; on load it skips the
-  reference's graph arrays (``adj0``, ``adj0_d``, ``up_adj``, ``up_d``).
-
+  reference's graph arrays (``adj0``, ``adj0_d``, ``up_adj``, ``up_d``),
+  and serves a ``scan_only`` snapshot by the exact scan at any size;
 - the sparse index: ``sparse.npz`` (``alive``, ``has_doc``, ``raw_nnz``),
   the chunked host CSR (``sp_keys``, ``sp_ids``, ``sp_buckets``) and raw
   rows (``sp_raw_dims``, ``sp_raw_vals``), and ``sparse.msgpack`` written
   last; the device CSR, doc rows and head matrix are rebuilt from them at
-  the first search.
+  the first search;
+- the tf-idf index: ``tfidf.msgpack`` (k1, b, avgdl, the document
+  accounting, ``alive``/``has_doc`` and each term's postings); its device
+  arrays are rebuilt from it at the first search.
 
 Not ported (each raises ``NotImplementedError`` naming its ROADMAP item):
-sharded dense snapshots, codes spilled to the host, and the tf-idf part (a
-collection holding a tf-idf index never reaches here).
+sharded dense snapshots and codes spilled to the host.
 """
 
 from __future__ import annotations
@@ -232,6 +234,45 @@ def save_collection_state(coll, snap_dir: str | Path, archive: bool = False) -> 
         _save_dense(d.index, snap_dir, list(d.range), d.params.num_layers)
     if coll.sparse is not None:
         _save_sparse(coll.sparse, snap_dir)
+    if coll.tfidf is not None:
+        _save_tfidf(coll.tfidf, snap_dir)
+
+
+def _save_tfidf(t, snap_dir: Path) -> None:
+    """Persist the tf-idf index's host state in the reference's layout."""
+    data = {
+        "k1": t.k1,
+        "b": t.b,
+        "avgdl": t.average_document_length,
+        "configured": t.is_configured,
+        "total_documents": t.total_documents,
+        "live_documents": t.live_documents,
+        "n": t.n,
+        "n_cap": t.n_cap,
+        "alive": t._alive.tolist(),
+        "has_doc": t._has_doc.tolist(),
+        "postings": [(term, ids, t._tfs[term]) for term, ids in t._postings.items()],
+    }
+    _atomic_write(snap_dir / "tfidf.msgpack", msgpack.packb(data))
+
+
+def _load_tfidf(t, snap_dir: Path) -> None:
+    """Load a tf-idf index saved by either package into ``t`` (k1 and b
+    come from the index descriptor, as in the reference)."""
+    with open(snap_dir / "tfidf.msgpack", "rb") as f:
+        data = msgpack.unpackb(f.read(), strict_map_key=False)
+    t.average_document_length = data["avgdl"]
+    t.is_configured = data["configured"]
+    t.total_documents = data["total_documents"]
+    t.live_documents = data.get("live_documents", t.total_documents)
+    t.n = data["n"]
+    t.n_cap = data["n_cap"]
+    t._alive = np.asarray(data["alive"], bool)
+    t._has_doc = np.asarray(data["has_doc"], bool) if "has_doc" in data else np.ones(t.n_cap, bool)
+    t._postings = {int(term): list(ids) for term, ids, _ in data["postings"]}
+    t._tfs = {int(term): list(tfs) for term, _, tfs in data["postings"]}
+    t._alive_dev = None
+    t._csr_dirty = True
 
 
 def _save_sparse(s, snap_dir: Path) -> None:
@@ -431,6 +472,9 @@ def load_collection_state(coll, snap_dir: str | Path) -> None:
         d._build()
         idx = d.index
         idx.store = _load_store(snap_dir, meta, z, d.dimension, d.device)
+        # a snapshot without a graph (every one the port writes) is served by
+        # the scan at any size; its tombstones stay in the mask below
+        idx.scan_only = bool(meta.get("scan_only"))
         alive = np.ones(idx.store.capacity, bool)
         saved_alive = np.asarray(z["alive"], bool)[: idx.store.capacity]
         alive[: len(saved_alive)] = saved_alive
@@ -450,6 +494,8 @@ def load_collection_state(coll, snap_dir: str | Path) -> None:
             d.row_of = {int(iid): r for r, iid in enumerate(d.internal_of) if alive[r]}
     if (snap_dir / "sparse.msgpack").exists() and coll.sparse is not None:
         _load_sparse(coll.sparse, snap_dir)
+    if (snap_dir / "tfidf.msgpack").exists() and coll.tfidf is not None:
+        _load_tfidf(coll.tfidf, snap_dir)
     # incremental-maps bookkeeping
     d = coll.dense
     coll._maps_saved = {

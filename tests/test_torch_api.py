@@ -11,11 +11,13 @@ differ by nature and are masked.
 
 The reference's indexes are kept off their graph build (scan-only from
 construction, as the port's are) and its wire probe is pinned fast, so it
-ships exact f32 rows and queries as the port does. The port's routes that
-are not ported (tf-idf, a hybrid query_text leg, neighbors) must answer
-501 with a message that names their ROADMAP item; a stored collection
-holding a sparse index written by the reference is served with the
-reference's answers, and one holding a tf-idf index answers 501."""
+ships exact f32 rows and queries as the port does. A second script over a
+collection with dense, sparse and tf-idf indexes drives the sparse, tf-idf
+and hybrid (with a ``query_text`` leg) routes through both apps, case by
+case; the graph's ``/neighbors`` answers 501 in both, the port's naming
+its ROADMAP item. Stored collections written by the reference, one with a
+sparse index and one with a tf-idf index, are served by the port with the
+reference's answers."""
 
 import asyncio
 
@@ -291,54 +293,115 @@ async def _login(client):
     return {"Authorization": f"Bearer {(await resp.json())['access_token']}"}
 
 
-def test_not_ported_routes_answer_501(tmp_path):
-    """Sparse routes are served; tf-idf, a hybrid query_text leg and the
-    graph's /neighbors answer 501 naming their ROADMAP item."""
-    async def script(client):
-        h = await _login(client)
-        c = "/vectordb/collections/sp"
-        await client.post("/vectordb/collections", headers=h, json={
-            "name": "sp", "dense_vector": {"enabled": True, "dimension": 4},
-            "sparse_vector": {"enabled": True}, "tf_idf_options": {"enabled": True},
-        })
-        out = {}
-        for name, method, path, body in (
-            ("sparse_index", "post", c + "/indexes/sparse", {"quantization": 64}),
-            ("tfidf_index", "post", c + "/indexes/tf-idf", {}),
-            ("sparse_search", "post", c + "/search/sparse", {"query_terms": [[1, 0.5]]}),
-            ("batch_sparse", "post", c + "/search/batch-sparse", {"query_terms_list": [[[1, 0.5]]]}),
-            ("tfidf_search", "post", c + "/search/tf-idf", {"query": "hello"}),
-            ("batch_tfidf", "post", c + "/search/batch-tf-idf", {"queries": ["hello"]}),
-            ("hybrid", "post", c + "/search/hybrid", {"query_vector": [0.1] * 4, "query_text": "a"}),
-            ("batch_hybrid", "post", c + "/search/batch-hybrid",
-             {"queries": [{"query_vector": [0.1] * 4, "query_text": "a"}]}),
-            ("neighbors", "get", c + "/vectors/1/neighbors", None),
-        ):
-            kw = {"json": body} if body is not None else {}
-            resp = await getattr(client, method)(path, headers=h, **kw)
-            out[name] = (resp.status, await resp.json())
-        return out
+def _text(i, n=12):
+    """Doc i's text: zipf-ish words w0..w199 (bench.py's BM25 corpus shape)."""
+    rng = np.random.default_rng(3000 + i)
+    return " ".join(f"w{w}" for w in rng.pareto(1.1, n).astype(np.int64) % 200)
 
-    out = _run_port(tmp_path, script)
-    served = {"sparse_index": 201, "sparse_search": 200, "batch_sparse": 200}
-    for name, (status, body) in out.items():
-        if name in served:
-            assert status == served[name], (name, status, body)
-            continue
-        assert status == 501, (name, status, body)
-        assert "ROADMAP queue 1" in body["error"], (name, body)
-    assert out["sparse_index"][1]["index_type"] == "sparse"
-    assert out["sparse_search"][1]["results"] == [] and out["batch_sparse"][1]["responses"] == [{"results": []}]
-    for name in ("tfidf_index", "tfidf_search", "batch_tfidf", "hybrid", "batch_hybrid"):
-        assert "ROADMAP queue 1: BM25 and the text leg" in out[name][1]["error"], name
-    assert "the graph" in out["neighbors"][1]["error"]
+
+def _query_text(i):
+    """Doc i's 3 rarest words."""
+    return " ".join(sorted(_text(i).split(), key=lambda w: int(w[1:]))[-3:])
+
+
+ROUTE_CASES = ["sparse_index", "tfidf_index", "sparse_search", "batch_sparse", "tfidf_search", "batch_tfidf",
+               "hybrid", "batch_hybrid", "neighbors"]
+
+
+async def _routes_script(client):
+    """Dense, sparse and tf-idf indexes over 60 streamed vectors, then one
+    request per route case; returns {case: (status, body)}."""
+    h = await _login(client)
+    c = "/vectordb/collections/sp"
+    await client.post("/vectordb/collections", headers=h, json={
+        "name": "sp", "dense_vector": {"enabled": True, "dimension": 4},
+        "sparse_vector": {"enabled": True}, "tf_idf_options": {"enabled": True},
+    })
+    await client.post(c + "/indexes/dense", headers=h, json={
+        "name": "sp_dense", "distance_metric_type": "cosine", "quantization": {"type": "scalar", "data_type": "u8"},
+    })
+    x = np.round(np.random.default_rng(9).normal(size=(60, 4)), 6)
+    out = {}
+    for name, body in (("sparse_index", {"quantization": 64, "sample_threshold": 20}),
+                       ("tfidf_index", {"sample_threshold": 20})):
+        resp = await client.post(c + "/indexes/" + ("sparse" if name == "sparse_index" else "tf-idf"),
+                                 headers=h, json=body)
+        out[name] = (resp.status, await resp.json())
+    resp = await client.post(c + "/streaming/upsert", headers=h, json={"vectors": [
+        {"id": i, "dense_values": x[i].tolist(), "sparse_values": _sparse(i), "text": _text(i)} for i in range(60)
+    ]})
+    assert resp.status == 200, await resp.text()
+    for name, method, path, body in (
+        ("sparse_search", "post", c + "/search/sparse", {"query_terms": _terms(7), "top_k": 5}),
+        ("batch_sparse", "post", c + "/search/batch-sparse", {"query_terms_list": [_terms(i) for i in range(3)]}),
+        ("tfidf_search", "post", c + "/search/tf-idf", {"query": _query_text(7), "top_k": 5,
+                                                        "return_raw_text": True}),
+        ("batch_tfidf", "post", c + "/search/batch-tf-idf", {"queries": [_query_text(i) for i in range(4)],
+                                                             "top_k": 5}),
+        ("hybrid", "post", c + "/search/hybrid", {"query_vector": x[11].tolist(), "query_text": _query_text(11),
+                                                  "top_k": 5}),
+        ("batch_hybrid", "post", c + "/search/batch-hybrid", {"queries": [
+            {"query_vector": x[i].tolist(), "query_text": _query_text(i + 1)} for i in range(3)
+        ] + [{"query_terms": _terms(20), "query_text": _query_text(20)}], "top_k": 5}),
+        ("neighbors", "get", c + "/vectors/1/neighbors", None),
+    ):
+        kw = {"json": body} if body is not None else {}
+        resp = await getattr(client, method)(path, headers=h, **kw)
+        out[name] = (resp.status, await resp.json())
+    return out
+
+
+@pytest.fixture(scope="module")
+def route_answers(tmp_path_factory):
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(JS, "_WIRE_BW_MBPS", 1e9)
+        init = JH.HNSWIndex.__init__
+
+        def scan_only_init(self, *a, **kw):
+            init(self, *a, **kw)
+            self.scan_only = True
+
+        mp.setattr(JH.HNSWIndex, "__init__", scan_only_init)
+        jctx = JAppContext(j_load_config(data_path=str(tmp_path_factory.mktemp("ref"))), admin_key=ADMIN)
+
+        async def run():
+            client = TestClient(TestServer(j_make_app(jctx)))
+            await client.start_server()
+            try:
+                return await _routes_script(client)
+            finally:
+                await client.close()
+
+        ref = asyncio.run(run())
+        jctx.indexing.stop()
+        jctx.meta.close()
+    return ref, _run_port(tmp_path_factory.mktemp("port"), _routes_script)
+
+
+@pytest.mark.parametrize("case", ROUTE_CASES)
+def test_not_ported_routes_answer_501(route_answers, case):
+    """The sparse, tf-idf and hybrid (query_text) routes answer as the
+    reference's do; the graph's /neighbors answers 501 in both, the port's
+    naming its ROADMAP item."""
+    ref, port = route_answers
+    (j_status, j_body), (t_status, t_body) = ref[case], port[case]
+    assert t_status == j_status, (t_body, j_body)
+    if case == "neighbors":
+        assert t_status == 501 and "ROADMAP queue 1: the graph" in t_body["error"]
+        return
+    _compare(t_body, j_body)
+    if case.endswith("search") or case.endswith("hybrid"):
+        rows = [t_body["results"]] if "results" in t_body else [r["results"] for r in t_body["responses"]]
+        assert all(rows), rows
+    if case == "tfidf_search":
+        assert t_body["results"][0]["id"] == 7 and t_body["results"][0]["text"] == _text(7)
 
 
 def test_stored_sparse_collection_answers_501(tmp_path):
-    """A collection stored with a sparse index by the reference (a
-    transaction of 300 sparse vectors with deletes) is served by the port
-    with the reference's answers; one stored with a tf-idf index stays out
-    of the port's loaded collections and answers 501 with the reason."""
+    """Collections stored by the reference, one with a sparse index (a
+    transaction of 300 sparse vectors with deletes) and one with a tf-idf
+    index (300 texts, the same way), are served by the port with the
+    reference's answers."""
     ref = JAppContext(j_load_config(data_path=str(tmp_path)), admin_key=ADMIN)
     coll = ref.create_collection({
         "name": "mixed", "dense_vector": {"enabled": True, "dimension": 4},
@@ -354,7 +417,14 @@ def test_stored_sparse_collection_answers_501(tmp_path):
     want = coll.search_sparse([[tuple(p) for p in q] for q in queries], K)
     want_vec = coll.get_vector(9)
     tf = ref.create_collection({"name": "text", "tf_idf_options": {"enabled": True}})
-    tf.create_tf_idf_index()
+    tf.create_tf_idf_index(sample_threshold=100)
+    txn = tf.create_transaction()
+    tf.txn_upsert(txn.txn_id, [{"id": i, "text": _text(i)} for i in range(300)], True)
+    for i in (7, 21):
+        tf.txn_delete(txn.txn_id, i)
+    tf.index_version(tf.commit_transaction(txn.txn_id), txn)
+    text_queries = [_query_text(i) for i in range(5, 25)]
+    want_text = tf.search_tfidf(text_queries, K)
     ref.create_collection({"name": "plain", "dense_vector": {"enabled": True, "dimension": 4}})
     ref.indexing.stop()
     ref.meta.close()
@@ -372,31 +442,42 @@ def test_stored_sparse_collection_answers_501(tmp_path):
         out["search"] = [r["results"] for r in (await resp.json())["responses"]]
         resp = await client.get("/vectordb/collections/mixed/vectors/9", headers=h)
         out["vector"] = await resp.json()
+        resp = await client.post("/vectordb/collections/text/search/batch-tf-idf", headers=h,
+                                 json={"queries": text_queries, "top_k": K})
+        out["text_search"] = [r["results"] for r in (await resp.json())["responses"]]
         return out
 
     out = _run_port(tmp_path, script)
-    assert out["mixed"][0] == 200 and out["plain"][0] == 200
-    assert out["text"][0] == 501 and "ROADMAP queue 1: BM25 and the text leg" in out["text"][1]["error"]
-    assert out["list"] == ["mixed", "plain"]
+    assert out["mixed"][0] == 200 and out["plain"][0] == 200 and out["text"][0] == 200
+    assert out["list"] == ["mixed", "plain", "text"]
     assert len(out["search"]) == len(want)
     for t_row, j_row in zip(out["search"], want):
         _compare_results(t_row, j_row)
         assert not {7, 21} & {r["id"] for r in t_row}
     assert out["vector"] == want_vec
+    assert len(out["text_search"]) == len(want_text)
+    for t_row, j_row in zip(out["text_search"], want_text):
+        _compare_results(t_row, j_row)
+        assert len(t_row) == K and not {7, 21} & {r["id"] for r in t_row}
 
 
 def test_cli_requires_device(tmp_path):
-    """``python -m cosdata_tpu_torch`` has no default device."""
+    """``python -m cosdata_tpu_torch`` runs on the card unless asked for the
+    CPU: with no ``--device`` it takes ``cuda`` and refuses when torch sees
+    no card (no quiet move to the CPU); an unknown device is refused."""
+    import os
     import subprocess
     import sys
     from pathlib import Path
 
     root = Path(__file__).resolve().parents[1]
-    for extra, want in (([], "--device"), (["--device", "tpu"], "cuda, cuda:N or cpu")):
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+    for extra, want in (([], "--device cuda: torch sees no CUDA device"),
+                        (["--device", "tpu"], "cuda, cuda:N or cpu")):
         out = subprocess.run(
             [sys.executable, "-m", "cosdata_tpu_torch", "--admin-key", "k",
              "--data-path", str(tmp_path), "--no-grpc", *extra],
-            cwd=root, capture_output=True, text=True, timeout=120,
+            cwd=root, capture_output=True, text=True, timeout=120, env=env,
         )
         assert out.returncode == 2 and want in out.stderr, out.stderr
 
@@ -437,5 +518,50 @@ def test_concurrent_mixed_top_k_searches_match_lone_searches(tmp_path):
         assert [len(row) for row in got] == ks
         np.testing.assert_allclose([r["score"] for row in got for r in row],
                                    [r["score"] for row in alone for r in row], rtol=1e-6, atol=1e-7)
+    finally:
+        ctx.close()
+
+
+def test_concurrent_tfidf_searches_match_lone_searches(tmp_path):
+    """Text searches from many threads coalesce in the tf-idf MicroBatcher
+    while hybrid searches run their text leg beside them; each must get
+    exactly what it gets alone."""
+    import sys
+    import threading
+
+    ctx = TAppContext(t_load_config(data_path=str(tmp_path)), admin_key=ADMIN, device="cpu")
+    try:
+        coll = ctx.create_collection({"name": "tx", "dense_vector": {"enabled": True, "dimension": 4},
+                                      "tf_idf_options": {"enabled": True}})
+        coll.create_dense_index(quantization={"type": "scalar", "data_type": "u8"})
+        coll.create_tf_idf_index(sample_threshold=50)
+        x = np.random.default_rng(5).normal(size=(400, 4))
+        coll.index_embeddings([{"id": i, "dense_values": x[i].tolist(), "text": _text(i)} for i in range(400)])
+        ks = [3, 10, 5, 1] * 8
+        jobs = [("text", _query_text(i), ks[i]) if i % 4 else
+                ("hybrid", {"query_vector": x[i].tolist(), "query_text": _query_text(i)}, ks[i]) for i in range(32)]
+
+        def run(job):
+            kind, q, k = job
+            return coll.search_tfidf([q], k)[0] if kind == "text" else coll.hybrid_search(q, k)
+
+        alone = [run(job) for job in jobs]
+        got = [None] * 32
+        old = sys.getswitchinterval()
+        sys.setswitchinterval(1e-5)
+        try:
+            def worker(i):
+                got[i] = run(jobs[i])
+
+            threads = [threading.Thread(target=worker, args=(i,)) for i in range(32)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=60)
+            assert not any(t.is_alive() for t in threads)
+        finally:
+            sys.setswitchinterval(old)
+        assert got == alone
+        assert all(len(row) > 0 for row in got)
     finally:
         ctx.close()

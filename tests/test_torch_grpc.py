@@ -6,8 +6,10 @@ through an in-process server over each package's AppContext, and every
 call must answer the same status code and message. Scores agree within
 rtol 1e-5, atol 1e-6; match ids must agree where the reference's scores
 are untied. The reference's indexes are kept off their graph build and its
-wire probe is pinned fast, as in test_torch_api.py. A tf-idf index or
-search answers UNIMPLEMENTED from the port, with its ROADMAP item."""
+wire probe is pinned fast, as in test_torch_api.py. A second script
+creates sparse and tf-idf indexes, writes texts through a transaction and
+sends tf-idf FindSimilarVectors calls to each package's server: the port
+answers as the reference does."""
 
 import re
 
@@ -212,14 +214,19 @@ def test_port_semantics(transcripts):
     assert port["no_session"][0] == "UNAUTHENTICATED" and port["no_vector"][0] == "NOT_FOUND"
 
 
-def test_sparse_answers_unimplemented(tmp_path):
-    """Sparse indexes and searches are served; a tf-idf index or search
-    answers UNIMPLEMENTED naming its ROADMAP item."""
-    ctx = TAppContext(t_load_config(data_path=str(tmp_path)), admin_key=ADMIN, device="cpu")
-    server = t_build_server(ctx, TSessions(ADMIN), address="127.0.0.1:0")
+def _text(i):
+    rng = np.random.default_rng(4000 + i)
+    return " ".join(f"w{w}" for w in rng.pareto(1.1, 12).astype(np.int64) % 150)
+
+
+def _tfidf_calls(ctx, build_server, sessions) -> dict:
+    """Sparse and tf-idf indexes, 80 texts through a transaction, then
+    sparse and tf-idf FindSimilarVectors; returns {step: (code, matches)}."""
+    server = build_server(ctx, sessions, address="127.0.0.1:0")
     port = server.add_insecure_port("127.0.0.1:0")
     server.start()
     ch = grpc.insecure_channel(f"127.0.0.1:{port}")
+    out = {}
     try:
         tok = _call(ch, "AuthService", "CreateSession",
                     pb.CreateSessionRequest(username="admin", password=ADMIN), pb.CreateSessionResponse).access_token
@@ -232,18 +239,59 @@ def test_sparse_answers_unimplemented(tmp_path):
         resp = _call(ch, "VectorsService", "FindSimilarVectors", pb.FindSimilarVectorsRequest(
             collection_id="s", sparse=pb.FindSimilarSparseVectorsQuery(top_k=3),
         ), pb.FindSimilarVectorsResponse, tok)
-        assert list(resp.matches) == []
-        for service, method, req, resp_cls in (
-            ("IndexesService", "CreateTFIDFIndex", pb.CreateTFIDFIndexRequest(collection_id="s"), empty_pb2.Empty),
-            ("VectorsService", "FindSimilarVectors", pb.FindSimilarVectorsRequest(
-                collection_id="s", tf_idf=pb.FindSimilarTFIDFDocumentQuery(query="hello", top_k=3),
-            ), pb.FindSimilarVectorsResponse),
-        ):
-            with pytest.raises(grpc.RpcError) as e:
-                _call(ch, service, method, req, resp_cls, tok)
-            assert e.value.code() == grpc.StatusCode.UNIMPLEMENTED, (method, e.value.details())
-            assert "ROADMAP queue 1: BM25 and the text leg" in e.value.details()
+        out["empty_sparse"] = ("OK", list(resp.matches))
+        _call(ch, "IndexesService", "CreateTFIDFIndex",
+              pb.CreateTFIDFIndexRequest(collection_id="s", k1=1.2, b=0.75, sample_threshold=20), empty_pb2.Empty, tok)
+        txn = _call(ch, "TransactionsService", "CreateTransaction", pb.CreateTransactionRequest(collection_id="s"),
+                    pb.CreateTransactionResponse, tok).transaction_id
+        req = pb.UpsertVectorsRequest(collection_id="s", transaction_id=txn)
+        for i in range(80):
+            req.vectors.add(id=f"t{i}", text=_text(i))
+        _call(ch, "TransactionsService", "UpsertVectors", req, empty_pb2.Empty, tok)
+        _call(ch, "TransactionsService", "DeleteVectorInTransaction", pb.DeleteVectorInTransactionRequest(
+            collection_id="s", transaction_id=txn, vector_id="t3"), empty_pb2.Empty, tok)
+        _call(ch, "TransactionsService", "CommitTransaction",
+              pb.CommitTransactionRequest(collection_id="s", transaction_id=txn), empty_pb2.Empty, tok)
+        ctx.indexing.wait_idle()
+        for name, i in (("tfidf_self", 9), ("tfidf_deleted", 3), ("tfidf_query", 40)):
+            query = " ".join(sorted(_text(i).split(), key=lambda w: int(w[1:]))[-3:])
+            try:
+                resp = _call(ch, "VectorsService", "FindSimilarVectors", pb.FindSimilarVectorsRequest(
+                    collection_id="s", tf_idf=pb.FindSimilarTFIDFDocumentQuery(query=query, top_k=K),
+                ), pb.FindSimilarVectorsResponse, tok)
+            except grpc.RpcError as e:
+                out[name] = (e.code().name, e.details())
+                continue
+            out[name] = ("OK", [MessageToDict(m, preserving_proto_field_name=True) for m in resp.matches])
+        return out
     finally:
         ch.close()
         server.stop(0)
-        ctx.close()
+
+
+def test_sparse_answers_unimplemented(tmp_path):
+    """Sparse and tf-idf indexes and searches are served: a tf-idf
+    FindSimilarVectors answers as the reference's (scores rtol 1e-5, ids
+    where untied), and a deleted text never comes back."""
+    jctx = JAppContext(j_load_config(data_path=str(tmp_path / "ref")), admin_key=ADMIN)
+    try:
+        ref = _tfidf_calls(jctx, j_build_server, JSessions(ADMIN))
+    finally:
+        jctx.indexing.stop()
+        jctx.meta.close()
+    tctx = TAppContext(t_load_config(data_path=str(tmp_path / "port")), admin_key=ADMIN, device="cpu")
+    try:
+        port = _tfidf_calls(tctx, t_build_server, TSessions(ADMIN))
+    finally:
+        tctx.close()
+    assert port["empty_sparse"] == ref["empty_sparse"] == ("OK", [])
+    for name in ("tfidf_self", "tfidf_deleted", "tfidf_query"):
+        (j_code, jm), (t_code, tm) = ref[name], port[name]
+        assert t_code == j_code == "OK", (tm, jm)
+        assert len(tm) == len(jm) > 0
+        js = [m["score"] for m in jm]
+        np.testing.assert_allclose([m["score"] for m in tm], js, rtol=1e-5, atol=1e-6)
+        u = _untied(js)
+        assert [m["id"] for m, ok in zip(tm, u) if ok] == [m["id"] for m, ok in zip(jm, u) if ok]
+    assert "t9" in [m["id"] for m in port["tfidf_self"][1]]
+    assert "t3" not in [m["id"] for m in port["tfidf_deleted"][1]]

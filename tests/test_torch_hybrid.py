@@ -1,10 +1,13 @@
 """Hybrid search: the port's ``rrf_fuse`` (cosdata_tpu_torch/core/fusion.py)
 and ``Collection.hybrid_search_batch`` against the reference's on the same
 inputs. Both collections (device "cpu" for the port) hold a u8 "auto"
-dense index over 1,500 x 32 unit rows and a sparse index over a zipf corpus
-(vocab 600, 16 pairs per doc), numpy seeds 0 and 1, with a few deletes; 24
+dense index over 1,500 x 32 unit rows, a sparse index over a zipf corpus
+(vocab 600, 16 pairs per doc) and a tf-idf index over zipf texts (words
+w0..w799, 24 per doc), numpy seeds 0, 1 and 2, with a few deletes; 24
 queries pair a perturbed doc vector with the doc's 6 rarest dims, some with
-a per-query early-termination threshold (a second sparse leg group).
+a per-query early-termination threshold (a second sparse leg group), and
+24 more pair the vector or the dims with the doc's 4 rarest words (the
+``query_text`` leg).
 
 Tolerance: scores rtol 1e-5, atol 1e-6. Fused ids must be equal where the
 reference's fused scores are untied; tie groups inside a list are compared
@@ -38,12 +41,14 @@ def _data():
     srng = np.random.default_rng(1)
     dims = (srng.pareto(1.2, size=(N, NNZ)) * 15).astype(np.int64) % VOCAB
     vals = srng.gamma(2.0, 0.8, size=(N, NNZ)).astype(np.float32)
+    words = np.random.default_rng(2).pareto(1.1, size=(N, 24)).astype(np.int64) % 800
     vectors = [
         {"id": i, "dense_values": x[i].tolist(),
-         "sparse_values": [[int(d), float(v)] for d, v in zip(dims[i], vals[i])]}
+         "sparse_values": [[int(d), float(v)] for d, v in zip(dims[i], vals[i])],
+         "text": " ".join(f"w{w}" for w in words[i])}
         for i in range(N)
     ]
-    queries = []
+    queries, text_queries = [], []
     for j in range(NQ):
         pick = np.argsort(dims[j])[-6:]
         qv = x[j] + 0.3 * rng.normal(size=DIM).astype(np.float32)
@@ -52,15 +57,19 @@ def _data():
         if j % 3 == 2:
             q["sparse_early_terminate_threshold"] = 0.5
         queries.append(q)
-    return vectors, queries
+        other = {"query_vector": qv.tolist()} if j % 2 else {"query_terms": terms}
+        text_queries.append({**other, "query_text": " ".join(f"w{w}" for w in np.sort(words[j])[-4:])})
+    return vectors, queries, text_queries
 
 
 def _collection(ctx, vectors):
     coll = ctx.create_collection({
         "name": "hy", "dense_vector": {"enabled": True, "dimension": DIM}, "sparse_vector": {"enabled": True},
+        "tf_idf_options": {"enabled": True},
     })
     coll.create_dense_index(quantization={"type": "auto", "sample_threshold": 100})
     coll.create_sparse_index(quantization=64, sample_threshold=200)
+    coll.create_tf_idf_index(sample_threshold=200)
     coll.index_embeddings(vectors)
     for i in (4, 40, 400):
         coll.delete_embedding(i)
@@ -70,7 +79,7 @@ def _collection(ctx, vectors):
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    vectors, queries = _data()
+    vectors, queries, text_queries = _data()
     out = {}
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(JS, "_WIRE_BW_MBPS", 1e9)
@@ -85,6 +94,7 @@ def runs(tmp_path_factory):
         jcoll = _collection(jctx, vectors)
         out["ref"] = jcoll.hybrid_search_batch(queries, top_k=K)
         out["ref_fc"] = jcoll.hybrid_search_batch(queries[:6], top_k=5, fusion_constant_k=10.0)
+        out["ref_text"] = jcoll.hybrid_search_batch(text_queries, top_k=K)
         jctx.indexing.stop()
         jctx.meta.close()
     tctx = TAppContext(t_load_config(data_path=str(tmp_path_factory.mktemp("port"))), admin_key=ADMIN,
@@ -94,8 +104,8 @@ def runs(tmp_path_factory):
         out["port"] = tcoll.hybrid_search_batch(queries, top_k=K)
         out["port_fc"] = tcoll.hybrid_search_batch(queries[:6], top_k=5, fusion_constant_k=10.0)
         out["port_one"] = [tcoll.hybrid_search(q, top_k=K) for q in queries[:3]]
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1: BM25 and the text leg"):
-            tcoll.hybrid_search_batch([{"query_vector": queries[0]["query_vector"], "query_text": "a b"}])
+        out["port_text"] = tcoll.hybrid_search_batch(text_queries, top_k=K)
+        out["port_text_one"] = [tcoll.hybrid_search(q, top_k=K) for q in text_queries[:2]]
         with pytest.raises(ValueError, match="two of"):
             tcoll.hybrid_search_batch([{"query_vector": queries[0]["query_vector"]}])
     finally:
@@ -124,6 +134,15 @@ def test_hybrid_batch_matches_reference(runs):
 
 def test_fusion_constant_matches_reference(runs):
     _same_lists(runs["port_fc"], runs["ref_fc"])
+
+
+def test_text_hybrid_matches_reference(runs):
+    """A query_text leg beside a dense or a sparse leg, fused as the
+    reference fuses it; a lone query equals its batch row."""
+    _same_lists(runs["port_text"], runs["ref_text"])
+    for one, row in zip(runs["port_text_one"], runs["port_text"]):
+        assert [r["id"] for r in one] == [r["id"] for r in row]
+    assert np.mean([j in {r["id"] for r in row} for j, row in enumerate(runs["port_text"])]) >= 0.8
 
 
 def test_single_hybrid_equals_batch_row(runs):

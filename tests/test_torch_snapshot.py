@@ -20,7 +20,16 @@ with deletes, streams a few more and a delete; the port opens it, answers
 its sparse searches (scores rtol 1e-5, atol 1e-6; ids where untied) and
 GETs as the reference does, writes its own sparse snapshot (the
 reference's layout), answers identically after a restart, and the
-reference loads that snapshot back with the port's answers."""
+reference loads that snapshot back with the port's answers. A tf-idf
+collection (1,500 zipf texts) goes the same way through ``tfidf.msgpack``.
+
+A scan-only snapshot is served at any size: the port's own snapshot of
+2,010 rows with 30 deletes, loaded by each package with
+``flat_serve_threshold`` and ``graph_filter_min`` set to 1,000, answers
+masked and unmasked searches in both; the port's lists are those it gives
+under the limits, hold no deleted id, and equal the reference's wherever
+the reference's lists hold no tombstoned row. A freshly built index above
+the limits still needs the graph."""
 
 import numpy as np
 import pytest
@@ -56,6 +65,16 @@ def sparse_corpus(n, seed=7):
 
 def _sparse_vec(i, dims, vals):
     return {"id": i, "sparse_values": [[int(d), float(v)] for d, v in zip(dims[i], vals[i])]}
+
+
+def text_corpus(n, seed=11):
+    words = np.random.default_rng(seed).pareto(1.1, size=(n, 20)).astype(np.int64) % 600
+    return [" ".join(f"w{w}" for w in row) for row in words], words
+
+
+def _text_queries():
+    _, words = text_corpus(N_SP + 10)
+    return [" ".join(f"w{w}" for w in np.sort(words[i])[-4:]) for i in range(0, 160, 10)]
 
 
 def _sparse_queries(dims, vals):
@@ -99,6 +118,22 @@ def _answers(ctx, q):
         "search": coll.search_sparse(_sparse_queries(*sparse_corpus(N_SP + 10)), K),
         "vectors": [coll.get_vector(i) for i in SP_PROBES],
     }
+    coll = ctx.get_collection("text")
+    out["text"] = {
+        "search": coll.search_tfidf(_text_queries(), K),
+        "vectors": [coll.get_vector(i) for i in SP_PROBES],
+    }
+    return out
+
+
+def _scan_only_answers(ctx, q):
+    """Dense answers with the serving limits below the 2,010 rows."""
+    out = {}
+    for name in KINDS:
+        coll = ctx.get_collection(name)
+        coll.dense.flat_serve_threshold = coll.dense.graph_filter_min = 1000
+        assert coll.dense.index.scan_only
+        out[name] = {"plain": coll.search_dense(q, K), "filtered": coll.search_dense(q, K, filter_dto=RED)}
     return out
 
 
@@ -128,6 +163,16 @@ def _reference_writes(data_dir, x, q):
     coll.index_version(coll.commit_transaction(txn.txn_id), txn)
     coll.stream_upsert([_sparse_vec(i, dims, vals) for i in range(N_SP, N_SP + 10)])
     coll.stream_delete(41)
+    texts, _ = text_corpus(N_SP + 10)
+    coll = ctx.create_collection({"name": "text", "tf_idf_options": {"enabled": True}})
+    coll.create_tf_idf_index(sample_threshold=300)
+    txn = coll.create_transaction()
+    coll.txn_upsert(txn.txn_id, [{"id": i, "text": texts[i]} for i in range(N_SP)], True)
+    for i in range(3, 90, 3):
+        coll.txn_delete(txn.txn_id, i)
+    coll.index_version(coll.commit_transaction(txn.txn_id), txn)
+    coll.stream_upsert([{"id": i, "text": texts[i]} for i in range(N_SP, N_SP + 10)])
+    coll.stream_delete(41)
     answers = _answers(ctx, q)
     ctx.indexing.stop()
     ctx.meta.close()
@@ -141,7 +186,7 @@ def runs(tmp_path_factory):
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(JS, "_WIRE_BW_MBPS", 1e9)  # the reference ships exact f32 rows and queries
         ref = _reference_writes(data_dir, x, q)
-        snap = {name: data_dir / "collections" / name / "snapshot" for name in (*KINDS, "sparse")}
+        snap = {name: data_dir / "collections" / name / "snapshot" for name in (*KINDS, "sparse", "text")}
         graph_before = {name: (p / "adj0.meta.json").exists() for name, p in snap.items()}
         wals_before = {name: len(list(p.parent.glob("*.wal"))) for name, p in snap.items()}
         port_ctx = TAppContext(t_load_config(data_path=str(data_dir)), admin_key=ADMIN, device="cpu")
@@ -151,13 +196,16 @@ def runs(tmp_path_factory):
         port_ctx.close()
         restart_ctx = TAppContext(t_load_config(data_path=str(data_dir)), admin_key=ADMIN, device="cpu")
         restart = _answers(restart_ctx, q)
+        restart_scan = _scan_only_answers(restart_ctx, q)
         restart_ctx.close()
         back_ctx = JAppContext(j_load_config(data_path=str(data_dir)), admin_key=ADMIN)
         back = _answers(back_ctx, q)
+        back_scan = _scan_only_answers(back_ctx, q)
         back_ctx.indexing.stop()
         back_ctx.meta.close()
     return {
         "ref": ref, "port": port, "restart": restart, "back": back,
+        "restart_scan": restart_scan, "back_scan": back_scan,
         "files": (graph_before, wals_before, wals_after, graph_after),
     }
 
@@ -250,3 +298,71 @@ def test_reference_loads_port_snapshot(runs, kind):
     _in_order_subset(back["plain"], port["plain"])
     _in_order_subset(back["filtered"], port["filtered"])
     assert back["vectors"] == port["vectors"]
+
+
+def _same_text_results(t, j):
+    assert len(t) == len(j)
+    for t_row, j_row in zip(t, j):
+        assert len(t_row) == len(j_row) > 0
+        js = [r["score"] for r in j_row]
+        np.testing.assert_allclose([r["score"] for r in t_row], js, rtol=1e-5, atol=1e-6)
+        u = _untied(js)
+        assert [r["id"] for r, ok in zip(t_row, u) if ok] == [r["id"] for r, ok in zip(j_row, u) if ok]
+
+
+def test_text_search_matches_reference(runs):
+    """A reference-written tfidf.msgpack (plus a streamed WAL) opens in the port."""
+    _same_text_results(runs["port"]["text"]["search"], runs["ref"]["text"]["search"])
+    dead = {41, *range(3, 90, 3)}
+    assert not dead & {r["id"] for row in runs["port"]["text"]["search"] for r in row}
+    t, j = runs["port"]["text"]["vectors"], runs["ref"]["text"]["vectors"]
+    assert t == j and j[2] is None and j[3]["text"] == text_corpus(N_SP + 10)[0][N_SP + 2]
+
+
+def test_port_text_snapshot_round_trip(runs):
+    _, wals_before, wals_after, _ = runs["files"]
+    assert (wals_before["text"], wals_after["text"]) == (1, 0)
+    assert runs["restart"]["text"] == runs["port"]["text"]
+
+
+def test_reference_loads_port_text_snapshot(runs):
+    back, port = runs["back"]["text"], runs["port"]["text"]
+    _same_text_results(back["search"], port["search"])
+    assert back["vectors"] == port["vectors"]
+
+
+@pytest.mark.parametrize("kind", list(KINDS))
+def test_scan_only_snapshot_served_above_threshold(runs, kind):
+    dead = {41, *range(3, 90, 3)}
+    for mode in ("plain", "filtered"):
+        port, ref = runs["restart_scan"][kind][mode], runs["back_scan"][kind][mode]
+        assert port == runs["restart"][kind][mode]
+        assert all(len(row) == K and not dead & {r["id"] for r in row} for row in port)
+        full = [(t_row, j_row) for t_row, j_row in zip(port, ref) if len(j_row) == K]
+        assert full
+        _same_results([t for t, _ in full], [j for _, j in full])
+        _in_order_subset(ref, port)
+
+
+def test_fresh_index_above_threshold_needs_the_graph():
+    """Only a scan-only index is served above the limits; it stays one
+    through a compaction, which rebuilds its store without a graph."""
+    from cosdata_tpu_torch.core.collection import DenseIndexHandle
+
+    x, q = gen_clustered(300, 4)
+    d = DenseIndexHandle(DIM, "cpu", quantization={"type": "scalar", "data_type": "u8"})
+    d.add_batch(list(range(300)), x)
+    d.flat_serve_threshold = d.graph_filter_min = 100
+    mask = np.ones(300, bool)
+    for row_mask in (None, mask):
+        with pytest.raises(NotImplementedError, match="the graph"):
+            d.search(q, K, row_mask=row_mask)
+    d.index.scan_only = True
+    want = d.search(q, K)
+    for i in range(0, 300, 3):
+        d.delete(i)
+    d.flush()
+    assert d.index.n == 200 and d.index.scan_only
+    ids, _ = d.search(q, K, row_mask=np.ones(200, bool))
+    assert (ids >= 0).all() and not (ids % 3 == 0).any()
+    assert [i for i in want[0][0] if i % 3] == [i for i in d.search(q, K)[0][0] if i in set(want[0][0])]

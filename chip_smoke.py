@@ -1,7 +1,8 @@
-"""Chip smoke of the PyTorch/CUDA port: dense exact-scan search at 1M x 768,
-u8 and sub-byte, the serving stack (REST, restart, gRPC) over it, then
-sparse search at 500,000 docs, dense + sparse hybrid search, BM25
-full-text search at 100,000 docs and dense + text hybrid search.
+"""Chip smoke of the PyTorch/CUDA port: dense search at 1M x 768, u8 and
+sub-byte, by the exact scan and by the HNSW graph, the serving stack
+(REST, restart, gRPC) over it, then sparse search at 500,000 docs, dense +
+sparse hybrid search, BM25 full-text search at 100,000 docs and dense +
+text hybrid search.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -10,47 +11,59 @@ Run from the repository root on a machine with one CUDA card:
 Phases: 0 environment; 1 build both kernels (u8_bin_max, K1;
 subbyte_code_scores, K2) from the checkout's sources, in parallel; 2 K1
 against its plain PyTorch version at the u8 path's shapes and the tiles'
-edges, timed beside its bound and torch._int_mm; 3 the u8 path at 1M x 768
-through DenseIndexHandle.search and FlatIndex.search, recall@10 against an
-exact f32 oracle and K1's launch count; 4 u8 search semantics; 5 K2 and
-its query unpack against their plain versions, bit for bit, timed
-likewise; 6 the sub-byte path
-on the same corpus through a quaternary DenseIndexHandle at 1M rows,
-recall@10 and K2's launch count; 7 quaternary search semantics; 8 a quaternary FlatIndex
-at 262,144 rows (the reference's bench row) at b1024 and b4096, then
-binary, octal and f16 at b1024; 9 the REST server (``AppContext`` on the
-card, aiohttp on a local port): a 65,536 x 768 collection written through
-one explicit transaction, searched in batches (recall@10 against an exact
-oracle), filtered, read back by id and streamed a delete; 10 a restart of
-the context on the same data dir (snapshot + WAL replay) answering the same
-queries identically; 11 served throughput: the phase-3 u8 and the phase-6
-quaternary 1M handles mounted into collections and searched over HTTP in
-128-query requests from 8 threads; 12 the gRPC server over the u8
-collection, whose FindSimilarVectors must return REST's ids; 13 the sparse
-inverted index at the reference's bench scale (500,000 docs x 64 pairs,
-vocab 30,000): ingest, b64/b256/b1 search through the dense-head engine,
-recall against the index's exhaustive oracle and against a brute-force
-exact score computed on the card from the raw pairs, and one timing of
-each quantized route without raw rows; 14 a collection with a dense and a
-sparse index written over REST (16,384 rows in one transaction), sparse,
-batch-sparse and batch-hybrid searches held against brute force and
-against RRF of the two legs, GET by id, a streamed delete, a restart
-answering identically and gRPC sparse search equal to REST's; 15 hybrid
-search at 100,000 docs (a u8 dense leg on K1, a sparse leg on the head
-engine) through Collection.hybrid_search_batch and /search/batch-hybrid,
-held against RRF of the legs; 16 the BM25 engine at the reference's bench
-scale (100,000 docs of 40 zipf words): ingest, first search, b64/b256/b1
-search, recall against the index's exhaustive oracle and against a
-brute-force Σ idf·tf computed on the card from its postings, a profile of
-a b256 search, then dense + text hybrid search (a u8 dense leg on K1 over
-100,000 rows) held against RRF of the legs; 17 a collection with a dense
-and a tf-idf index written over REST (16,384 rows with texts in one
-transaction), tf-idf, batch-tf-idf, hybrid and batch-hybrid searches equal
-to the direct Collection calls, a text read back, a streamed delete, a
-restart answering identically, gRPC tf-idf search equal to REST's, and the
-restarted scan-only dense index served above its serving limit. K1 and K2
-launch counts are read around each path. Any failure exits non-zero. The
-last line is one JSON object naming the device.
+edges, timed beside its bound and torch._int_mm; 3 the u8 path at 1M x 768:
+a DenseIndexHandle filled as the reference's bench fills it (983,616 rows
+in one call: the graph's bulk build), one search, then 16 insertion waves
+of 1,024 rows, searched through DenseIndexHandle.search and
+FlatIndex.search, recall@10 against an exact f32 oracle and K1's launch
+count; 4 u8 search semantics, and the graph routes with the serving limits
+below the rows (unfiltered and 50% filter by the graph, 5% filter by the
+scan, a deleted id never back); 5 K2 and its query unpack against their
+plain versions, bit for bit, timed likewise; 6 the sub-byte path on the
+same corpus through a quaternary DenseIndexHandle at 1M rows (its graph
+built the same way), recall@10 and K2's launch count; 7 quaternary search
+semantics; 8 a quaternary FlatIndex at 262,144 rows (the reference's bench
+row) at b1024 and b4096, then binary, octal and f16 at b1024; 9 the REST
+server (``AppContext`` on the card, aiohttp on a local port): a 65,536 x
+768 collection written through one explicit transaction (its graph
+bulk-built), searched in batches (recall@10 against an exact oracle),
+filtered, read back by id and streamed a delete; 10 a restart of the
+context on the same data dir (snapshot + WAL replay) answering the same
+queries identically, by the scan and by the reloaded graph; 11 served
+throughput: the phase-3 u8 and the phase-6 quaternary 1M handles mounted
+into collections and searched over HTTP in 128-query requests from 8
+threads; 12 the gRPC server over the u8 collection, whose
+FindSimilarVectors must return REST's ids; 13 the sparse inverted index at
+the reference's bench scale (500,000 docs x 64 pairs, vocab 30,000):
+ingest, b64/b256/b1 search through the dense-head engine, recall against
+the index's exhaustive oracle and against a brute-force exact score
+computed on the card from the raw pairs, and one timing of each quantized
+route without raw rows; 14 a collection with a dense and a sparse index
+written over REST (16,384 rows in one transaction), sparse, batch-sparse
+and batch-hybrid searches held against brute force and against RRF of the
+two legs, GET by id, a streamed delete, a restart answering identically
+and gRPC sparse search equal to REST's; 15 hybrid search at 100,000 docs (a
+u8 dense leg on K1, a sparse leg on the head engine) through
+Collection.hybrid_search_batch and /search/batch-hybrid, held against RRF
+of the legs; 16 the BM25 engine at the reference's bench scale (100,000
+docs of 40 zipf words): ingest, first search, b64/b256/b1 search, recall
+against the index's exhaustive oracle and against a brute-force Σ idf·tf
+computed on the card from its postings, a profile of a b256 search, then
+dense + text hybrid search (a u8 dense leg on K1 over 100,000 rows) held
+against RRF of the legs; 17 a collection with a dense and a tf-idf index
+written over REST (16,384 rows with texts in one transaction), tf-idf,
+batch-tf-idf, hybrid and batch-hybrid searches equal to the direct
+Collection calls, a text read back, a streamed delete, a restart
+answering identically, gRPC tf-idf search equal to REST's, the reloaded
+graph answering above the serving limit as before the restart, then the
+dense snapshot rewritten without its graph and reloaded scan-only, served
+above the limit by the scan with the scan's answers; 18 the HNSW graph of
+phase 3: HNSWIndex.search at ef 128, 256 and 512 (b1024, recall@10
+gated at 0.99 and 0.995 for ef 128 and 256), 8 single queries, a profile,
+the quaternary graph at ef 256, and a quaternary exact-path bulk build
+(K2 through the chunked scan). K1 and K2 launch counts are read around
+each path. Any failure exits non-zero. The last line is one JSON object
+naming the device.
 """
 
 from __future__ import annotations
@@ -78,6 +91,7 @@ try:
     from cosdata_tpu_torch.core.collection import DenseIndexHandle, tune_dense_range
     from cosdata_tpu_torch.core.fusion import rrf_fuse
     from cosdata_tpu_torch.indexes.flat import FlatIndex
+    from cosdata_tpu_torch.indexes.hnsw import HNSWIndex
     from cosdata_tpu_torch.indexes.inverted import InvertedIndex
     from cosdata_tpu_torch.indexes.tf_idf import TFIDFIndex
     from cosdata_tpu_torch.ops import sparse_kernels
@@ -94,6 +108,8 @@ N, DIM, NQ = 1_000_000, 768, 4096
 #: the reference's quaternary bench row (BENCH_r05.json, bench.py:777-805)
 N_SUB = 262_144
 ADD_BATCH = 131072
+#: rows the 1M handles take by insertion waves after their bulk build
+WAVE_ROWS = 16384
 RTOL, ATOL = 2e-5, 1e-5
 MIN_RECALL = 0.99
 #: the REST phases: collection rows (one scan chunk, so the capacity takes
@@ -237,14 +253,41 @@ def reset_counts() -> None:
     subbyte_scan.unpack_query_codes.launches = 0
 
 
+def graph_ingest(handle: DenseIndexHandle, x, q, card: str, name: str) -> None:
+    """Fill a 1M handle as the reference's bench does, plus insertion waves:
+    the first N - WAVE_ROWS rows in one add_batch (the bulk build on the RP
+    path), one search (the scan's capacity step, as a first search makes
+    it), then the last WAVE_ROWS rows (insertion waves of 1,024)."""
+    n_bulk = N - WAVE_ROWS
+    t0 = time.perf_counter()
+    handle.add_batch(list(range(n_bulk)), x[:n_bulk])
+    torch.cuda.synchronize()
+    t_bulk = time.perf_counter() - t0
+    idx = handle.index
+    stats = idx.last_build_stats
+    t0 = time.perf_counter()
+    handle.search(q[:8], 10)
+    t_first = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    handle.add_batch(list(range(n_bulk, N)), x[n_bulk:])
+    torch.cuda.synchronize()
+    t_waves = time.perf_counter() - t0
+    adj = sum(t.numel() * t.element_size() for t in (idx.adj0, idx.adj0_d, idx.up_adj, idx.up_d))
+    print(f"{name}: bulk build of {n_bulk} rows {t_bulk:.1f} s (ingest {stats['ingest_s']} s, graph "
+          f"{stats['graph_s']} s); first search {t_first:.2f} s; {WAVE_ROWS // 1024} waves of 1024 in "
+          f"{t_waves:.2f} s = {t_waves / (WAVE_ROWS // 1024) * 1e3:.0f} ms per wave; levels "
+          f"{idx.level_counts[:5].tolist()}, entry level {idx.entry_level}; adjacency {adj} B, capacity "
+          f"{idx.cap} [{card}]", flush=True)
+    if idx.n != N or idx.scan_only or idx.entry < 0:
+        fail(f"{name}: the graph was not built ({idx.n} rows, scan_only {idx.scan_only})")
+
+
 def main_path(x, q, truth, dev, card: str) -> tuple[int, DenseIndexHandle]:
     """Phases 3 and 4; returns K1's launches during the u8 path and the
-    handle, which phase 11 serves."""
+    handle, which phases 11 and 18 serve."""
     t0 = time.perf_counter()
     handle = DenseIndexHandle(DIM, dev)  # quantization "auto"
-    for s in range(0, N, ADD_BATCH):
-        e = min(s + ADD_BATCH, N)
-        handle.add_batch(list(range(s, e)), x[s:e])
+    graph_ingest(handle, x, q, card, "u8 handle")
     flat = FlatIndex(DIM, dev, kind="u8", range_=tune_dense_range(x[:1000].cpu().numpy()), raw_dtype="f16")
     for s in range(0, N, ADD_BATCH):
         flat.add(x[s : s + ADD_BATCH])
@@ -284,16 +327,47 @@ def main_path(x, q, truth, dev, card: str) -> tuple[int, DenseIndexHandle]:
     rows = np.asarray([handle.row_of[i] for i in ids[ids >= 0]])
     if (ids < 0).any() or not mask[rows].all():
         fail("masked search returned rows outside the mask")
-    serve_threshold, handle.flat_serve_threshold = handle.flat_serve_threshold, handle.index.n - 1
-    try:
-        handle.search(q[:8], 10)
-    except NotImplementedError as err:
-        print(f"above flat_serve_threshold: NotImplementedError ({err})")
-    else:
-        fail("a search above flat_serve_threshold did not raise NotImplementedError")
-    handle.flat_serve_threshold = serve_threshold
     print("self-query, delete, mask: ok")
+    graph_routes(handle, x, q, truth, card)
     return launches, handle
+
+
+def graph_routes(handle: DenseIndexHandle, x, q, truth, card: str) -> None:
+    """Phase 4's graph routes, with the serving limits below the rows: an
+    unfiltered search and a 50% filter take the graph, a 5% filter the
+    scan, and a deleted id never comes back from the graph."""
+    n = handle.index.n
+    limits = handle.flat_serve_threshold, handle.graph_filter_min
+    handle.flat_serve_threshold = handle.graph_filter_min = n - 1
+    reset_counts()
+    t, (ids, _) = timed_search(lambda: handle.search(q[:1024], 10), reps=1)
+    k1_graph = u8_scan.u8_bin_max.launches
+    r = recall10(ids, truth[:1024])
+    half = np.zeros(n, bool)
+    half[::2] = True
+    t_half, (h_ids, _) = timed_search(lambda: handle.search(q[:1024], 10, row_mask=half), reps=1)
+    keep = torch.as_tensor(np.flatnonzero(half), device=q.device)
+    masked_truth = keep[exact_top10(q[:1024], x[keep])]
+    r_half = recall10(h_ids, masked_truth)
+    in_half = bool((h_ids >= 0).all() and half[h_ids].all())
+    five = np.zeros(n, bool)
+    five[::20] = True
+    reset_counts()
+    f_ids, _ = handle.search(q[:64], 10, row_mask=five)
+    k1_five = u8_scan.u8_bin_max.launches
+    in_five = bool((f_ids >= 0).all() and five[f_ids].all())
+    d_ids, _ = handle.search(x[[7, 8]], 10)
+    handle.flat_serve_threshold, handle.graph_filter_min = limits
+    print(f"graph routes (limits {n - 1} < {n} rows): unfiltered b1024 recall@10 {r:.4f} in {t * 1e3:.1f} ms "
+          f"(K1 launches {k1_graph}); 50% filter recall@10 {r_half:.4f} against the masked oracle, ids in the "
+          f"mask {in_half}, {t_half * 1e3:.1f} ms; 5% filter: the scan (K1 launches {k1_five}), ids in the mask "
+          f"{in_five}; deleted 7 absent {7 not in d_ids} [{card}]", flush=True)
+    if r < MIN_RECALL or r_half < MIN_RECALL:
+        fail(f"graph routes: recall@10 {r:.4f} / {r_half:.4f} < {MIN_RECALL}")
+    if not (in_half and in_five) or k1_graph or not k1_five:
+        fail("graph routes: a filter leaked, or a route took the wrong engine")
+    if 7 in d_ids or d_ids[1, 0] != 8:
+        fail(f"graph routes: deleted 7 came back or 8 did not find itself: {d_ids[:, :3].tolist()}")
 
 
 def k2_check(gen, dev, card: str) -> tuple[int, dict, int, dict]:
@@ -369,14 +443,12 @@ def flat_index(kind: str, x, dev) -> FlatIndex:
 
 def subbyte_path(x, q, truth, dev, card: str) -> tuple[int, int, DenseIndexHandle]:
     """Phases 6 to 8; returns K2's and the query unpack's launches during
-    the quaternary runs and the quaternary handle, which phase 11 serves."""
+    the quaternary runs and the quaternary handle, which phases 11 and 18
+    serve."""
     k2, unpack = subbyte_scan.subbyte_code_scores, subbyte_scan.unpack_query_codes
     t0 = time.perf_counter()
     handle = DenseIndexHandle(DIM, dev, quantization={"type": "scalar", "data_type": "quaternary"})
-    for s in range(0, N, ADD_BATCH):
-        e = min(s + ADD_BATCH, N)
-        handle.add_batch(list(range(s, e)), x[s:e])
-    torch.cuda.synchronize()
+    graph_ingest(handle, x, q, card, "quaternary handle")
     print(f"quaternary handle ingest {time.perf_counter() - t0:.1f} s, rerank factor {handle.index._rerank_factor()}")
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -616,11 +688,25 @@ def rest_phase(data_dir: str, x_rest: np.ndarray, q_rest: np.ndarray, truth, dev
           f"streamed delete of {victim}: ok", flush=True)
     seq = batch_search(client, "rest", q_rest, 1)
     launches = u8_scan.u8_bin_max.launches
-    print(f"u8_bin_max launches in phase 9: {launches}", flush=True)
+    graph = graph_answers(coll, q_rest)
+    print(f"u8_bin_max launches in phase 9: {launches}; graph answers (limit {N_REST - 1} < {N_REST} rows) "
+          f"recall@10 {recall10(graph[0], torch.as_tensor(truth[:256])):.4f} [{card}]", flush=True)
     client.close()
     server.close()
     ctx.close()
-    return {"launches": launches, "ids": seq[0], "scores": seq[1], "victim": victim}
+    return {"launches": launches, "ids": seq[0], "scores": seq[1], "victim": victim, "graph": graph}
+
+
+def graph_answers(coll, q_rest: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """The collection's dense answers to 256 queries with the serving limit
+    below its rows: the graph's."""
+    d = coll.dense
+    if d.index.scan_only:
+        fail("the REST collection's dense index holds no graph")
+    limit, d.flat_serve_threshold = d.flat_serve_threshold, d.index.n - 1
+    out = rows_of(coll.search_dense(np.asarray(q_rest[:256], np.float32), 10))
+    d.flat_serve_threshold = limit
+    return out
 
 
 def restart_phase(data_dir: str, q_rest: np.ndarray, before: dict, dev, card: str) -> int:
@@ -637,13 +723,15 @@ def restart_phase(data_dir: str, q_rest: np.ndarray, before: dict, dev, card: st
     same_ids = bool((ids == before["ids"]).all())
     same_scores = bool((scores == before["scores"]).all())
     status, _ = client.call("GET", f"/vectordb/collections/rest/vectors/{before['victim']}")
-    print(f"after restart: ids identical {same_ids}, scores identical {same_scores}; deleted "
-          f"{before['victim']} answers HTTP {status}; {dt:.3f} s; u8_bin_max launches {launches} [{card}]",
-          flush=True)
+    g_ids, g_scores = graph_answers(ctx.get_collection("rest"), q_rest)
+    same_graph = bool((g_ids == before["graph"][0]).all() and (g_scores == before["graph"][1]).all())
+    print(f"after restart: ids identical {same_ids}, scores identical {same_scores}; graph answers identical "
+          f"{same_graph}; deleted {before['victim']} answers HTTP {status}; {dt:.3f} s; u8_bin_max launches "
+          f"{launches} [{card}]", flush=True)
     client.close()
     server.close()
     ctx.close()
-    if not (same_ids and same_scores):
+    if not (same_ids and same_scores and same_graph):
         fail("the restarted context answered differently")
     if status != 404:
         fail(f"the deleted vector came back after the restart (HTTP {status})")
@@ -990,9 +1078,7 @@ def hybrid_phase(x, q, hy_dims, hy_vals, dev, card: str) -> int:
         coll.create_dense_index(quantization={"type": "scalar", "data_type": "u8", "range": {"min": lo, "max": hi}},
                                 raw_storage="device")
         t0 = time.perf_counter()
-        for s in range(0, N_HY, ADD_BATCH):
-            e = min(s + ADD_BATCH, N_HY)
-            coll.dense.add_batch(list(range(s, e)), x[s:e])
+        coll.dense.add_batch(list(range(N_HY)), x[:N_HY])  # one call: the bulk build
         coll.create_sparse_index(quantization=64, sample_threshold=256)
         for i in range(256):
             coll.sparse.add(i, dims[i], vals[i])
@@ -1201,9 +1287,7 @@ def bm25_phase(x, q, docs: list[str], word_ids: np.ndarray, dev, card: str) -> i
                                       "tf_idf_options": {"enabled": True}})
         lo, hi = tune_dense_range(x[:1000].cpu().numpy())
         coll.create_dense_index(quantization={"type": "scalar", "data_type": "u8", "range": {"min": lo, "max": hi}})
-        for s in range(0, N_BM, ADD_BATCH):
-            e = min(s + ADD_BATCH, N_BM)
-            coll.dense.add_batch(list(range(s, e)), x[s:e])
+        coll.dense.add_batch(list(range(N_BM)), x[:N_BM])  # one call: the bulk build
         coll.tfidf = tfi
         coll.raw = {i: {"id": i, "document_id": None} for i in range(N_BM)}
         hq_dense = np.concatenate([q[:64].cpu().numpy()] * 4)
@@ -1232,7 +1316,8 @@ def bm25_rest_phase(data_dir: str, x_hy: np.ndarray, q_rest: np.ndarray, docs: l
                     dev, card: str) -> int:
     """Phase 17: dense + text written over REST, tf-idf and hybrid searched
     against the direct calls, a text read back, a streamed delete, then the
-    restart, gRPC and the scan-only reload; returns K1's launches."""
+    restart, gRPC, the reloaded graph and a scan-only reload; returns K1's
+    launches."""
     n = N_SP_REST
     ctx = AppContext(load_config(data_path=data_dir), admin_key=ADMIN_KEY, device=dev)
     server = RestServer(ctx)
@@ -1313,6 +1398,8 @@ def bm25_rest_phase(data_dir: str, x_hy: np.ndarray, q_rest: np.ndarray, docs: l
     for name, r in (("/batch-tf-idf recall", rec), ("/tf-idf recall", rec1), ("hybrid fusion match", fuse)):
         if r < MIN_RECALL:
             fail(f"phase 17 {name} {r:.4f} < {MIN_RECALL}")
+    qd = np.asarray(q_rest[:64], np.float32)
+    graph_before = dense_graph_ids(coll.dense, qd, n // 4)
     client.close()
     server.close()
     ctx.close()
@@ -1333,18 +1420,41 @@ def bm25_rest_phase(data_dir: str, x_hy: np.ndarray, q_rest: np.ndarray, docs: l
         collection_id="bmrest", tf_idf=pb.FindSimilarTFIDFDocumentQuery(query=t, top_k=10),
     ) for t in queries[:8]])
     grpc_same = grpc_ids == [[int(i) for i in row if i >= 0] for row in after["one"][0]]
-    # the restarted dense index came from the port's scan-only snapshot: it
-    # serves above its serving limit, by the scan, with the same answers
+    # the restarted dense index holds the graph of the port's snapshot:
+    # above its serving limit it answers as before the restart
+    coll = ctx.get_collection("bmrest")
+    dense = coll.dense
+    scan_ids, _ = dense.search(qd, 10)
+    graph_ids = dense_graph_ids(dense, qd, n // 4)
+    share = float((graph_ids[:, :, None] == scan_ids[:, None, :]).any(-1).mean())
+    graph_kept = not dense.index.scan_only and bool((graph_ids == graph_before).all())
+    print(f"after restart ({t_load:.1f} s): identical ids and scores {same_after}; deleted {victim} answers HTTP "
+          f"{status}; gRPC FindSimilarVectors (tf_idf) x8: ids equal REST's {grpc_same}; reloaded graph "
+          f"(flat_serve_threshold {n // 4} < {dense.index.n} rows, scan_only {dense.index.scan_only}): ids "
+          f"identical {graph_kept}, the scan's ids {share:.4f} [{card}]", flush=True)
+    # rewrite the dense snapshot without its graph: the reloaded scan-only
+    # index serves above its serving limit, by the scan, with the same answers
+    dense.index.scan_only = True
+    coll.save_snapshot()
+    client.close()
+    server.close()
+    ctx.close()
+    ctx = AppContext(load_config(data_path=data_dir), admin_key=ADMIN_KEY, device=dev)
+    server = RestServer(ctx)
+    client = RestClient(server.port)
+    client.login()
     dense = ctx.get_collection("bmrest").dense
     dense.flat_serve_threshold = dense.graph_filter_min = n // 4
     scan = answers(client)
     same_scan = all(bool((scan[k][0] == after[k][0]).all() and (scan[k][1] == after[k][1]).all()) for k in scan)
+    scan_above, _ = dense.search(qd, 10)
+    same_scan = same_scan and bool((scan_above == scan_ids).all()) and victim not in scan_above
     launches = u8_scan.u8_bin_max.launches
-    print(f"after restart ({t_load:.1f} s): identical ids and scores {same_after}; deleted {victim} answers HTTP "
-          f"{status}; gRPC FindSimilarVectors (tf_idf) x8: ids equal REST's {grpc_same}; scan-only dense index "
-          f"(flat_serve_threshold {dense.flat_serve_threshold} < {dense.index.n} rows, scan_only "
-          f"{dense.index.scan_only}): identical answers {same_scan}; u8_bin_max launches in phase 17: {launches} "
-          f"(dense capacity {dense.index.cap}, below one scan chunk: the plain scan) [{card}]", flush=True)
+    print(f"scan-only reload (flat_serve_threshold {dense.flat_serve_threshold} < {dense.index.n} rows, scan_only "
+          f"{dense.index.scan_only}): tf-idf, hybrid and dense answers identical to the scan's under the limit, "
+          f"{victim} absent: {same_scan}; u8_bin_max launches in phase 17: {launches} (dense capacity "
+          f"{dense.index.cap}, below one scan chunk: the plain scan) [{card}]", flush=True)
+    scan_only = dense.index.scan_only
     client.close()
     server.close()
     ctx.close()
@@ -1354,9 +1464,67 @@ def bm25_rest_phase(data_dir: str, x_hy: np.ndarray, q_rest: np.ndarray, docs: l
         fail(f"the deleted vector came back after the restart (HTTP {status})")
     if not grpc_same:
         fail(f"gRPC tf-idf ids differ from REST's: {grpc_ids} vs {after['one'][0]}")
-    if not same_scan:
-        fail("the scan-only dense index answered differently above its serving limit")
+    if not graph_kept:
+        fail("the reloaded dense index holds no graph, or its graph answered differently")
+    if not scan_only or not same_scan:
+        fail("the scan-only dense index was not reloaded as such, or answered differently above its serving limit")
     return launches
+
+
+def dense_graph_ids(dense: DenseIndexHandle, qd: np.ndarray, limit: int) -> np.ndarray:
+    """A handle's ids for ``qd`` with its serving limits at ``limit``
+    (below its rows: the graph's), the limits put back after."""
+    limits = dense.flat_serve_threshold, dense.graph_filter_min
+    dense.flat_serve_threshold = dense.graph_filter_min = limit
+    ids, _ = dense.search(qd, 10)
+    dense.flat_serve_threshold, dense.graph_filter_min = limits
+    return ids
+
+
+def graph_phase(u8_handle: DenseIndexHandle, q4_handle: DenseIndexHandle, x, q, truth, dev, card: str) -> int:
+    """Phase 18: HNSWIndex.search on phase 3's 1M graph at ef 128, 256 and
+    512 (b1024, recall@10 against the exact f32 oracle, median of 5), 8
+    single queries, a profile, the quaternary graph at ef 256, and a
+    quaternary exact-path bulk build (K2 through the chunked scan);
+    returns K2's launches in that build."""
+    idx, qb = u8_handle.index, q[:1024]
+    recall = {}
+    for ef in (128, 256, 512):
+        t, (ids, _) = timed_search(lambda: idx.search(qb, 10, ef=ef))
+        recall[ef] = recall10(ids, truth[:1024])
+        print(f"HNSWIndex.search ef={ef} b1024: recall@10 {recall[ef]:.4f}, {t * 1e3:.1f} ms/batch, "
+              f"{1024 / t:.0f} qps [{card}]", flush=True)
+    lat = []
+    for i in range(8):
+        t0 = time.perf_counter()
+        ids, _ = idx.search(q[i : i + 1], 10, ef=128)
+        lat.append(time.perf_counter() - t0)
+    print(f"8 single queries at ef=128: median {statistics.median(lat) * 1e3:.1f} ms, max {max(lat) * 1e3:.1f} ms "
+          f"[{card}]", flush=True)
+    profile_top(lambda: idx.search(qb, 10, ef=128), card)
+    t, (ids, _) = timed_search(lambda: q4_handle.index.search(qb, 10, ef=256), reps=1)
+    # the 5 x k rerank shortlist of 2-bit scores bounds this recall (the
+    # scan's 20 x k shortlist, printed beside it, does not)
+    deep, _ = q4_handle.index.search(qb, 10, ef=256, rerank_keep=200)
+    print(f"quaternary graph ef=256 b1024: recall@10 {recall10(ids, truth[:1024]):.4f}, {t * 1e3:.1f} ms; "
+          f"rerank_keep 200: {recall10(deep, truth[:1024]):.4f} (not gated) [{card}]", flush=True)
+    # the exact bulk path of a sub-byte index scans with K2
+    n_ex = HNSWIndex.RP_THRESHOLD
+    small = HNSWIndex(DIM, dev, kind="quaternary", initial_capacity=n_ex)
+    reset_counts()
+    t0 = time.perf_counter()
+    small.add(x[:n_ex])
+    torch.cuda.synchronize()
+    k2 = subbyte_scan.subbyte_code_scores.launches
+    ids, _ = small.search(qb, 10, rerank_keep=200)
+    r_small = recall10(ids, exact_top10(qb, x[:n_ex]))
+    print(f"quaternary exact-path bulk build of {n_ex} rows: {time.perf_counter() - t0:.1f} s, K2 launches {k2}; "
+          f"graph recall@10 (rerank_keep 200) {r_small:.4f} (not gated) [{card}]", flush=True)
+    if recall[128] < MIN_RECALL or recall[256] < 0.995:
+        fail(f"graph recall@10 ef=128 {recall[128]:.4f} (gate {MIN_RECALL}), ef=256 {recall[256]:.4f} (gate 0.995)")
+    if k2 == 0:
+        fail("the quaternary exact bulk build never launched K2")
+    return k2
 
 
 def launches_per_batch(kernels, search) -> list[int]:
@@ -1484,6 +1652,9 @@ def main() -> None:
     with tempfile.TemporaryDirectory(prefix="cosdata_smoke_") as data_dir:
         k1_bm_rest = bm25_rest_phase(data_dir, x_hy, q_rest, bm_docs, bm_ids, dev, card)
     launches += k1_bm25 + k1_bm_rest
+
+    phase(f"18 HNSW graph at {N} x {DIM}")
+    k2_launches += graph_phase(u8_handle, q4_handle, x, q, truth, dev, card)
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
     print(card)

@@ -1,6 +1,7 @@
-"""PyTorch/CUDA port of cosdata_tpu: dense exact-scan search (u8, sub-byte,
-f16, f32), sparse (SPLADE-style) inverted-index search, dense + sparse
-hybrid search by reciprocal-rank fusion, and the serving stack above them
+"""PyTorch/CUDA port of cosdata_tpu: dense search (u8, sub-byte, f16, f32)
+by the exact scan and the HNSW graph, sparse (SPLADE-style) inverted-index
+search, BM25 full-text search, hybrid search by reciprocal-rank fusion, and
+the serving stack above them
 (collections, transactions, WAL, versions, snapshots, the REST and gRPC
 servers; ``python -m cosdata_tpu_torch --device cuda --admin-key KEY``).
 

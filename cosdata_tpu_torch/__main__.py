@@ -6,9 +6,10 @@ Mirrors upstream src/main.rs:29-53 + src/args.rs:5-15.
 Port of ``cosdata_tpu/__main__.py``. ``--device`` (``cuda``, ``cuda:N`` or
 ``cpu``) defaults to ``cuda``: the server runs on the card unless asked for
 the CPU with ``--device cpu``, and refuses ``cuda`` when torch sees no card
-(it never moves to the CPU on its own). A CUDA device serves every dense
-search through the hand-written kernels. The reference's device warm-up is
-not ported.
+(it never moves to the CPU on its own). On a CUDA device the exact-scan
+dense searches run the hand-written kernels and the HNSW graph runs as
+torch operations on the card. The reference's device warm-up is not
+ported.
 """
 
 from __future__ import annotations

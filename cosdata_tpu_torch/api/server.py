@@ -24,11 +24,12 @@ aiohttp replaces actix; compute-heavy work runs in a worker executor so the
 event loop stays responsive (the reference's actix worker threads play the
 same role, web_server.rs:48).
 
-Port of ``cosdata_tpu/api/server.py``. Changed from the reference: a route
-this port does not serve yet raises ``NotImplementedError``, which answers
-501 with the message naming its ROADMAP item (the reference's middleware
-would map it, a ``RuntimeError``, to 409 Conflict); the graph's
-``/neighbors`` is such a route.
+Port of ``cosdata_tpu/api/server.py``. Changed from the reference: a
+request this port does not serve yet raises ``NotImplementedError``, which
+answers 501 with the message naming its ROADMAP item (the reference's
+middleware would map it, a ``RuntimeError``, to 409 Conflict). Dense
+searches take the exact scan or the HNSW graph as the reference's do;
+``/neighbors`` answers the reference's plain 501 "not implemented".
 """
 
 from __future__ import annotations
@@ -543,11 +544,8 @@ class Server:
         return web.json_response(rec)
 
     async def get_neighbors(self, request):
-        # unimplemented in the reference too (vectors/repo.rs:101-107)
-        raise NotImplementedError(
-            "graph neighbors are not served: the HNSW graph is not ported yet "
-            "(ROADMAP queue 1: the graph)"
-        )
+        # explicitly unimplemented, as in the reference (vectors/repo.rs:101-107)
+        return _err(501, "not implemented")
 
     # --------------------------------------------------------- transactions
 

@@ -10,8 +10,9 @@ the context takes the ``device`` every collection's indexes live on; a
 stored collection that holds what the port cannot load (a sharded dense
 snapshot, codes spilled to the host) is not loaded with that part
 dropped: it stays out of ``collections`` and ``get_collection`` raises
-``NotImplementedError`` with the reason (HTTP 501); ``close()`` stops the
-epoch timer and drains background indexing.
+``NotImplementedError`` with the reason (HTTP 501); a dense snapshot
+reloads with its HNSW graph (a scan-only one without); ``close()`` stops
+the epoch timer and drains background indexing.
 """
 
 from __future__ import annotations

@@ -10,9 +10,10 @@ in its ``search``. It keeps the sample-then-configure protocol
 (quantization "auto" buffers ``sample_threshold`` rows, tunes the u8 range
 on them, then builds), the engine routing and flush-time compaction. u8,
 sub-byte (binary, quaternary, octal), f16 and f32 storage with cosine or
-dot are ported; every route that needs the graph raises
-``NotImplementedError`` naming its ROADMAP item. Every tensor lives on the
-``device`` the collection was given.
+dot are ported, and the HNSW graph serves unfiltered searches above
+``flat_serve_threshold`` and permissive filters above the serving limits,
+as in the reference. Every tensor lives on the ``device`` the collection
+was given.
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ from cosdata_tpu_torch.core.transaction import (
 from cosdata_tpu_torch.indexes.hnsw import HNSWIndex, HNSWParams
 from cosdata_tpu_torch.indexes.inverted import InvertedIndex
 from cosdata_tpu_torch.indexes.tf_idf import TFIDFIndex
-from cosdata_tpu_torch.ops.storage import SUBBYTE_ALIAS
+from cosdata_tpu_torch.ops.storage import SUBBYTE_ALIAS, as_rows
 from cosdata_tpu_torch.store.meta import MetaStore
 from cosdata_tpu_torch.store.versioning import VersionControl
 from cosdata_tpu_torch.store.wal import OP_DELETE, OP_UPSERT, read_wal
@@ -56,6 +57,22 @@ def tune_dense_range(values, clamp_margin_percent: float = 1.0):
     return (start, end)
 
 
+def _post_filter_topk(rows, scores, row_mask, cap: int, top_k: int):
+    """Keep each row's first top_k candidates surviving the mask (rows are
+    already score-descending)."""
+    ok = np.zeros(cap + 1, bool)
+    ok[: len(row_mask)] = row_mask
+    keep = (rows >= 0) & ok[np.maximum(rows, 0)]
+    # stable partition: survivors first, in their (descending-score) order
+    order = np.argsort(~keep, axis=1, kind="stable")[:, :top_k]
+    out_rows = np.take_along_axis(rows, order, axis=1)
+    out_scores = np.take_along_axis(scores, order, axis=1)
+    kept = np.take_along_axis(keep, order, axis=1)
+    out_rows = np.where(kept, out_rows, -1)
+    out_scores = np.where(kept, out_scores, -np.inf).astype(np.float32)
+    return out_rows, out_scores
+
+
 _METRIC_ALIAS = {
     "cosine": "cosine",
     "cosinesimilarity": "cosine",
@@ -67,7 +84,7 @@ _METRIC_ALIAS = {
 
 
 class DenseIndexHandle:
-    """Scan-served dense index + the auto-tuning sample buffer."""
+    """HNSW index + the auto-tuning sample buffer."""
 
     def __init__(
         self,
@@ -129,10 +146,10 @@ class DenseIndexHandle:
         #: space, forcing the next maps snapshot to rewrite its base
         self._gen = 0
         #: unfiltered searches at or below this row count take the exact
-        #: scan; above it they need the graph
+        #: scan; above it the graph
         self.flat_serve_threshold = 1_572_864
         #: filtered searches at or below this row count always take the
-        #: exact masked scan; above it permissive filters need the graph
+        #: exact masked scan; above it permissive filters take the graph
         self.graph_filter_min = 20_000
         # internal id <-> dense row maps
         self.row_of: dict[int, int] = {}
@@ -233,11 +250,11 @@ class DenseIndexHandle:
     COMPACT_THRESHOLD = 0.25
 
     def maybe_compact(self):
-        """Rebuild the store without tombstoned rows once they reach the
-        threshold, so the scan stops covering dead rows. The reference
-        rebuilds its graph at the same point; the scan-only index needs
-        only the store. The rows are the raw rows, re-quantized under the
-        same kind and range, so answers do not change."""
+        """Rebuild the index without tombstoned rows once they reach the
+        threshold: a fresh index takes the live raw rows (re-quantized
+        under the same kind and range) and builds its graph through ``add``
+        (the bulk build for an empty index and 8,192 rows or more, waves
+        below), as the reference does at flush points."""
         idx = self.index
         if idx is None or idx.n == 0:
             return
@@ -253,8 +270,6 @@ class DenseIndexHandle:
         raw = idx.store.raw_rows(rows)
         old_fields = {f: [lst[r] for r in rows] for f, lst in self.field_rows.items()}
         self._build(initial_capacity=len(internals))
-        # the rebuilt store has no graph either: a scan-only index stays one
-        self.index.scan_only = idx.scan_only
         self.index.add(raw)
         self.row_of = {iid: i for i, iid in enumerate(internals)}
         self.internal_of = list(internals)
@@ -270,28 +285,39 @@ class DenseIndexHandle:
         """Returns host (internal_ids (B, k), scores (B, k)); -1 padded.
 
         ``row_mask``: boolean filter over store rows (metadata filtering).
-        A scan-only index (loaded from a snapshot without a graph) takes the
-        exact scan at any size, masked or not, as the reference's does; any
-        other index above the serving limits needs the graph."""
+        Unfiltered searches up to ``flat_serve_threshold`` rows take the
+        exact scan, larger ones the graph. Selective filters (<= 10%) take
+        the exact masked scan; permissive ones on an index above
+        ``graph_filter_min`` and ``flat_serve_threshold`` take the graph
+        with oversampling and a post-filter, and any query left with fewer
+        than top_k survivors escalates to the exact masked scan. A
+        scan-only index (no graph) takes the exact scan at any size."""
         self.finalize_sampling()
-        n = self.index.n
-        if self.index.scan_only:
-            needs_graph = False
-        elif row_mask is None:
-            needs_graph = n > self.flat_serve_threshold
-        else:
+        idx = self.index
+        if row_mask is None and (idx.n <= self.flat_serve_threshold or idx.scan_only):
+            rows, scores = idx.search_brute(queries, top_k=top_k)
+        elif row_mask is not None:
             selectivity = float(row_mask.mean()) if len(row_mask) else 0.0
-            needs_graph = not (
+            if (
                 selectivity <= 0.10
-                or n <= self.graph_filter_min
-                or n <= self.flat_serve_threshold
-            )
-        if needs_graph:
-            raise NotImplementedError(
-                f"searching {n} rows{' with a permissive filter' if row_mask is not None else ''} "
-                "needs the HNSW graph, which is not ported yet (ROADMAP queue 1: the graph)"
-            )
-        rows, scores = self.index.search_brute(queries, top_k=top_k, mask=row_mask)
+                or idx.n <= self.graph_filter_min
+                or idx.n <= self.flat_serve_threshold
+                or idx.scan_only
+            ):
+                rows, scores = idx.search_brute(queries, top_k=top_k, mask=row_mask)
+            else:
+                boost = min(max(int(2.0 / max(selectivity, 1e-3)), 2), 8)
+                fetch = max(min(top_k * boost, idx.params.ef_search), top_k)
+                rows, scores = idx.search(queries, top_k=fetch, ef=ef)
+                rows, scores = _post_filter_topk(rows, scores, row_mask, idx.cap, top_k)
+                # escalate: a query with fewer than top_k survivors gets the
+                # exact masked scan
+                short = (rows >= 0).sum(axis=1) < min(top_k, int(row_mask.sum()))
+                if short.any():
+                    qs = as_rows(queries, idx.store.device)[torch.as_tensor(np.flatnonzero(short))]
+                    rows[short], scores[short] = idx.search_brute(qs, top_k=top_k, mask=row_mask)
+        else:
+            rows, scores = idx.search(queries, top_k=top_k, ef=ef)
         internal = np.full_like(rows, -1)
         key = (self._gen, len(self.internal_of))
         if self._internal_key != key:

@@ -6,8 +6,8 @@ Like the reference's dense gRPC search, metadata filters are not exposed
 over gRPC (explicit TODO at grpc/vectors/mod.rs:110-113).
 
 Port of ``cosdata_tpu/grpc_api/server.py``. Changed from the reference: a
-``NotImplementedError`` of the port (a search that needs the graph, a
-collection the port cannot serve) answers UNIMPLEMENTED with its message.
+``NotImplementedError`` of the port (a collection or an option the port
+cannot serve yet) answers UNIMPLEMENTED with its message.
 """
 
 from __future__ import annotations

@@ -8,13 +8,13 @@ Quantized kinds score in dequantized space:
 Sub-byte code dots come from kernel K2 (ops/kernels/subbyte_scan.py) at
 every size; float kinds are one full-f32 product.
 
-The int8 code contraction is exact on both devices: on the CPU it runs as
-an int32 product (an int8 ``torch.mm`` returns int8 and wraps); on CUDA,
-which has no integer ``mm``, it runs as an f32 product of the int8 values,
-which is exact while every partial sum stays below 2^24 — true for slices
-of at most 1024 lanes at full code range (128·128·1024 = 2^24), so wider
-rows are split and the partials summed as int32. TF32 is switched off for
-these products.
+The int8 code contraction is exact on both devices. It runs as an f32
+product of the int8 values (CUDA has no integer ``mm``, an int8 ``torch.mm``
+on the CPU returns int8 and wraps, and the CPU's int32 product has no BLAS
+behind it), which is exact while every partial sum stays below 2^24 —
+true for slices of at most 1024 lanes at full code range
+(128·128·1024 = 2^24), so wider rows are split and the partials summed as
+int32. TF32 is switched off for these products.
 
 The u8 products here serve stores below the scan threshold; the
 large-store u8 scan goes through the u8_bin_max kernel
@@ -37,18 +37,22 @@ def _no_tf32() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
-def code_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """int8 (M, D) x int8 (N, D)^T -> exact int32 (M, N)."""
-    if a.device.type == "cpu":
-        return torch.mm(a.to(torch.int32), b.to(torch.int32).T)
-    _no_tf32()
+def code_bmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """int8 (..., A, D) x int8 (..., B, D)^T -> exact int32 (..., A, B)."""
+    if a.device.type == "cuda":
+        _no_tf32()
     out = None
-    for s in range(0, a.shape[1], EXACT_F32_LANES):
+    for s in range(0, a.shape[-1], EXACT_F32_LANES):
         e = s + EXACT_F32_LANES
-        part = torch.mm(a[:, s:e].to(torch.float32), b[:, s:e].to(torch.float32).T)
+        part = torch.matmul(a[..., s:e].to(torch.float32), b[..., s:e].to(torch.float32).transpose(-1, -2))
         part = part.to(torch.int32)
         out = part if out is None else out + part
     return out
+
+
+def code_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """int8 (M, D) x int8 (N, D)^T -> exact int32 (M, N)."""
+    return code_bmm(a, b)
 
 
 def diag_code_dot(qrows: torch.Tensor, crows: torch.Tensor) -> torch.Tensor:
@@ -56,17 +60,7 @@ def diag_code_dot(qrows: torch.Tensor, crows: torch.Tensor) -> torch.Tensor:
 
     A plain batched product: the reference's grouping into block GEMMs
     (storage._diag_dot) exists only to reach the TPU's matrix unit."""
-    if qrows.device.type == "cpu":
-        return torch.bmm(crows.to(torch.int32), qrows.to(torch.int32)[:, :, None])[:, :, 0]
-    _no_tf32()
-    out = None
-    for s in range(0, qrows.shape[1], EXACT_F32_LANES):
-        e = s + EXACT_F32_LANES
-        part = torch.bmm(
-            crows[:, :, s:e].to(torch.float32), qrows[:, s:e].to(torch.float32)[:, :, None]
-        )[:, :, 0].to(torch.int32)
-        out = part if out is None else out + part
-    return out
+    return code_bmm(qrows[:, None, :], crows)[:, 0, :]
 
 
 def diag_dot(qrows: torch.Tensor, crows: torch.Tensor) -> torch.Tensor:

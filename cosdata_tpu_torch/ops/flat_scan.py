@@ -35,7 +35,7 @@ from cosdata_tpu_torch.ops.kernels.u8_scan import u8_bin_max_from_store
 from cosdata_tpu_torch.ops.quantize import QuantizedU8, quantize_u8
 from cosdata_tpu_torch.ops.storage import cos_or_dot, exact_scores, quantize_batch
 from cosdata_tpu_torch.ops.storage import rerank as rerank_raw
-from cosdata_tpu_torch.ops.topk import NEG_INF
+from cosdata_tpu_torch.ops.topk import NEG_INF, lax_top_k
 
 #: the bins table's size limit (elements); past it the reference falls back
 #: to its per-chunk "approx" engine, which is not ported
@@ -165,22 +165,30 @@ def _slice_store(store, kind: str, start: int, chunk: int):
     return store._replace(data=store.data[sl], mags=store.mags[sl])
 
 
-def flat_scan_topk(metric: str, kind: str, d: int, k: int, chunk: int, q, store, valid: torch.Tensor):
+def flat_scan_topk(metric: str, kind: str, d: int, k: int, chunk: int, q, store, valid: torch.Tensor,
+                   ref_select: bool = False):
     """Returns (scores (B, k), ids (B, k)) over the whole store, ids -1 where
     nothing was found; ``kind`` in {"u8", "subbyte", "float"}, capacity a
-    multiple of ``chunk``, ``valid`` (capacity,) bool."""
+    multiple of ``chunk``, ``valid`` (capacity,) bool. ``ref_select`` takes
+    the reference's selection, for callers whose results are the
+    reference's edges (the graph's exact bulk build): u8 chunk scores
+    rounded through bf16, as the reference's shortlist selects them, and
+    ties in index order (``lax.top_k``'s)."""
     capacity = valid.shape[0]
     b = q.mags.shape[0]
     top_s = torch.full((b, k), NEG_INF, dtype=torch.float32, device=valid.device)
     top_i = torch.full((b, k), -1, dtype=torch.int64, device=valid.device)
+    select = lax_top_k if ref_select else (lambda s, kk: torch.topk(s, kk, dim=1))
     # sub-byte queries are unpacked once, for every chunk's K2 product
     q_codes = unpack_query_codes(q.planes) if kind == "subbyte" else None
     for start in range(0, capacity, chunk):
         scores = D.score(metric, kind, q, _slice_store(store, kind, start, chunk), d, q_codes)  # (B, chunk)
         scores = torch.where(valid[None, start : start + chunk], scores, NEG_INF)
-        c_s, c_i = torch.topk(scores, min(k, chunk), dim=1)
+        if ref_select and kind == "u8":
+            scores = scores.to(torch.bfloat16).to(torch.float32)
+        c_s, c_i = select(scores, min(k, chunk))
         del scores
-        top_s, pos = torch.topk(torch.cat([top_s, c_s], dim=1), k, dim=1)
+        top_s, pos = select(torch.cat([top_s, c_s], dim=1), k)
         top_i = torch.gather(torch.cat([top_i, c_i + start], dim=1), 1, pos)
     top_i = torch.where(top_s > NEG_INF / 2, top_i, -1)
     return top_s, top_i

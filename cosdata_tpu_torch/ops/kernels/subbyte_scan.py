@@ -36,13 +36,18 @@ def word_major_codes(planes: torch.Tensor) -> torch.Tensor:
     ``i*W + w`` of the strided pack). Both sides of a code dot unpacked
     this way give the same sum as in dimension order; the kernel unpacks
     the query and store planes into this order, one word into 32
-    consecutive bytes."""
+    consecutive bytes. Here each little-endian byte of a word looks up its
+    8 bits in a (256, 8) table, which lays them out in this order with no
+    transposing copy (the graph's beam unpacks its gathered rows so)."""
     res, n, w = planes.shape
-    shifts = torch.arange(32, dtype=torch.int32, device=planes.device)
-    acc = torch.zeros((n, w, 32), dtype=torch.int32, device=planes.device)
+    lut = ((torch.arange(256, dtype=torch.int32, device=planes.device)[:, None]
+            >> torch.arange(8, dtype=torch.int32, device=planes.device)) & 1).to(torch.int8)
+    acc = None
     for p in range(res):
-        acc += ((planes[p][:, :, None] >> shifts) & 1) << (res - 1 - p)
-    return acc.reshape(n, 32 * w).to(torch.int8)
+        byte = planes[p].contiguous().view(torch.uint8).reshape(-1).to(torch.int32)
+        contrib = torch.index_select(lut, 0, byte) << (res - 1 - p)
+        acc = contrib if acc is None else acc + contrib
+    return acc.reshape(n, 32 * w)
 
 
 def subbyte_code_scores_plain(q_planes: torch.Tensor, planes: torch.Tensor, d: int) -> torch.Tensor:

@@ -10,8 +10,8 @@ Every stored code ``u`` represents ``x̂ = a*u + b``:
   ``step = 2/2^bits``; plane p holds bit ``res-1-p`` of each bucket code
   (plane 0 = MSB), packed **strided** into 32-bit words (bit i of word w is
   dimension i*W + w). torch's ``uint32`` lacks shifts, so the words live in
-  ``int32`` tensors holding the same bits; unpacking uses ``(w >> i) & 1``,
-  which an arithmetic shift leaves right.
+  ``int32`` tensors holding the same bits; unpacking reads them as bytes
+  through a bit table, which never shifts a word.
 - **f16/f32**: stored as-is with f32 magnitudes.
 
 Padded lanes carry code 0 and are excluded from magnitudes and the
@@ -107,11 +107,17 @@ def _pack_bits_to_u32(bits: torch.Tensor) -> torch.Tensor:
 
 
 def unpack_bits_from_u32(packed: torch.Tensor, d: int) -> torch.Tensor:
-    """Inverse of :func:`_pack_bits_to_u32`: (N, W) words -> (N, d) int8 of 0/1."""
+    """Inverse of :func:`_pack_bits_to_u32`: (N, W) words -> (N, d) int8 of 0/1.
+
+    The words are read as little-endian bytes (byte b holds bits 8b..8b+7),
+    laid out byte-major, and each byte is shifted by 0..7 into an output
+    already in dimension order, so the unpack moves bytes, not 32 shifted
+    int32 copies of every word, and needs no transposing copy after."""
     n, w = packed.shape
-    shifts = torch.arange(32, dtype=torch.int32, device=packed.device)
-    bits = (packed[:, None, :] >> shifts[None, :, None]) & 1
-    return bits.reshape(n, w * 32)[:, :d].to(torch.int8)
+    byte = packed.contiguous().view(torch.uint8).reshape(n, w, 4).transpose(1, 2).contiguous()
+    shifts = torch.arange(8, dtype=torch.uint8, device=packed.device)[:, None]
+    bits = (byte[:, :, None, :] >> shifts) & 1  # (N, 4 bytes, 8 bits, W): bit 8b+j of word w
+    return bits.view(torch.int8).reshape(n, 32 * w)[:, :d]
 
 
 def quantize_subbyte(

@@ -33,24 +33,11 @@ import torch
 import torch.nn.functional as F
 
 from cosdata_tpu_torch.ops.topk import NEG_INF
+from cosdata_tpu_torch.ops.topk import lax_top_k as _topk
 
 #: posting-gather lane width: device CSR lists start at multiples of it,
 #: so postings are fetched as (LANE,)-wide rows
 GATHER_LANE = 128
-
-
-def _topk(x: torch.Tensor, k: int):
-    """Top-k along the last axis, sorted, equal values in index order (as
-    ``lax.top_k``). Each score's order-preserving integer image takes the
-    high 32 bits of an int64 key and the complemented index the low 32, so
-    one ``torch.topk`` over the keys orders by (score desc, index asc).
-    Returns (values, indices)."""
-    bits = x.contiguous().view(torch.int32).to(torch.int64)
-    key = torch.where(bits >= 0, bits, bits ^ 0x7FFFFFFF)
-    low = (1 << 32) - 1 - torch.arange(x.shape[-1], device=x.device)
-    top = torch.topk(key * (1 << 32) + low, k, dim=-1).values
-    pos = (1 << 32) - 1 - (top & 0xFFFFFFFF)
-    return torch.gather(x, -1, pos), pos
 
 
 def _finish(top_s: torch.Tensor, top_i: torch.Tensor, k: int | None = None):

@@ -9,13 +9,17 @@ recovery between snapshots is WAL replay.
 The on-disk layout is the reference's, so the two packages read each
 other's snapshots:
 
-- ``dense.msgpack`` (store meta), ``dense.npz`` (``levels``, ``alive``,
-  ``mags``, ``sums``) and the chunked ``data`` (u8 int8 / f16 / f32 rows),
-  ``planes`` (sub-byte, uint32 words) and ``raw`` arrays;
-- the port has no graph, so it writes ``scan_only: true`` and no graph
-  files, which the reference's loader accepts; on load it skips the
-  reference's graph arrays (``adj0``, ``adj0_d``, ``up_adj``, ``up_d``),
-  and serves a ``scan_only`` snapshot by the exact scan at any size;
+- ``dense.msgpack`` (store meta and the graph's ``n_up``, ``entry``,
+  ``entry_level``, ``level_counts``), ``dense.npz`` (``levels``,
+  ``alive``, ``mags``, ``sums``, ``up_slot``) and the chunked ``data``
+  (u8 int8 / f16 / f32 rows), ``planes`` (sub-byte, uint32 words) and
+  ``raw`` arrays;
+- the graph: the chunked ``adj0``, ``adj0_d`` (level 0, rows rewritten by
+  the index tracker's ``adj0`` view) and ``up_adj``, ``up_d`` (the upper
+  table, by its ``up`` view);
+- an index with no graph (loaded from a ``scan_only`` snapshot) writes
+  ``scan_only: true`` and no graph files, and is served by the exact scan
+  at any size;
 - the sparse index: ``sparse.npz`` (``alive``, ``has_doc``, ``raw_nnz``),
   the chunked host CSR (``sp_keys``, ``sp_ids``, ``sp_buckets``) and raw
   rows (``sp_raw_dims``, ``sp_raw_vals``), and ``sparse.msgpack`` written
@@ -42,7 +46,7 @@ import torch
 from cosdata_tpu_torch.ops.storage import VectorStore
 from cosdata_tpu_torch.store.chunked import adopt_tracker, load_chunked, save_chunked
 
-#: the reference's graph arrays; the port neither reads nor writes them
+#: the graph's chunked arrays
 _GRAPH_ARRAYS = ("adj0", "adj0_d", "up_adj", "up_d")
 #: the REST data type of each sub-byte resolution
 _SUBBYTE_NAME = {1: "binary", 2: "quaternary", 3: "octal"}
@@ -168,58 +172,60 @@ def _save_maps(coll, snap_dir: Path, archive: bool = False) -> None:
         }
 
 
-def _save_dense(idx, snap_dir: Path, configured_range: list, num_layers: int) -> None:
-    """Persist the scan-served HNSWIndex (+ its VectorStore) into
-    ``snap_dir`` in the reference's scan-only layout."""
+def _save_dense(idx, snap_dir: Path, configured_range: list) -> None:
+    """Persist the HNSWIndex (+ its VectorStore) into ``snap_dir`` in the
+    reference's layout."""
     vs = idx.store
     a = vs.arrays
     st = vs.tracker.view("rows")
     # write order: chunked arrays and the npz first, the msgpack manifest
     # last (loaders key on the manifest)
+    if not idx.scan_only:
+        save_chunked(snap_dir, "adj0", _HostChunks(idx.adj0, np.int32), idx.tracker.view("adj0"))
+        save_chunked(snap_dir, "adj0_d", _HostChunks(idx.adj0_d, np.float32), idx.tracker.view("adj0"))
+        save_chunked(snap_dir, "up_adj", _HostChunks(idx.up_adj, np.int32), idx.tracker.view("up"))
+        save_chunked(snap_dir, "up_d", _HostChunks(idx.up_d, np.float32), idx.tracker.view("up"))
     if vs.kind == "subbyte":
         save_chunked(snap_dir, "planes", _HostChunks(a.planes, np.uint32), st, axis=1)
     else:
         save_chunked(snap_dir, "data", _HostChunks(a.data, _NP_DTYPE[a.data.dtype]), st)
     if vs.raw is not None:
         save_chunked(snap_dir, "raw", _HostChunks(vs.raw, _NP_DTYPE[vs.raw.dtype]), st)
-    arrays = {
-        "levels": np.zeros((vs.capacity,), np.int8),
-        "alive": _host(idx.alive),
-        "mags": _host(a.mags),
-    }
+    arrays = {"levels": idx.levels, "alive": _host(idx.alive), "mags": _host(a.mags)}
+    if not idx.scan_only:
+        arrays["up_slot"] = _host(idx.up_slot)
     if vs.kind in ("u8", "subbyte"):
         arrays["sums"] = _host(a.sums)
     _save_npz(snap_dir / "dense.npz", arrays)
-    n = vs.n
     meta = {
         "kind": vs.kind,
         "metric": vs.metric,
         "resolution": vs.resolution,
         "range": list(vs.range),
-        "n": n,
-        "n_up": 0,
-        # the reference's scan-only ingest: every row at level 0, the
-        # first row the entry
-        "entry": 0 if n else -1,
-        "entry_level": 0 if n else -1,
+        "n": vs.n,
+        "n_up": idx.n_up,
+        "entry": idx.entry,
+        "entry_level": idx.entry_level,
         "n_deleted": idx.n_deleted,
-        "level_counts": [n] + [0] * num_layers,
+        "level_counts": [int(x) for x in idx.level_counts],
         "configured_range": configured_range,
         # rows arrive as exact f32 (the reference's wire format on a fast link)
         "ship_dtype": "f32",
         "capacity": int(vs.capacity),
         "codes_on_host": False,
-        "scan_only": True,
+        "scan_only": bool(idx.scan_only),
         "raw_dtype": vs.raw_dtype,
     }
     _atomic_write(snap_dir / "dense.msgpack", msgpack.packb(meta))
-    # graph files of a reference snapshot this one replaced no longer
-    # describe the store (removed only once the scan-only manifest is down)
-    for name in _GRAPH_ARRAYS:
-        for f in snap_dir.glob(f"{name}.*"):
-            f.unlink(missing_ok=True)
+    if idx.scan_only:
+        # graph files of a snapshot this one replaced no longer describe
+        # the store (removed only once the scan-only manifest is down)
+        for name in _GRAPH_ARRAYS:
+            for f in snap_dir.glob(f"{name}.*"):
+                f.unlink(missing_ok=True)
     # every mutation after this save must mark its chunks at an epoch
     # strictly above anything just recorded
+    idx.tracker.bump()
     vs.tracker.bump()
 
 
@@ -231,7 +237,7 @@ def save_collection_state(coll, snap_dir: str | Path, archive: bool = False) -> 
     _save_maps(coll, snap_dir, archive=archive)
     d = coll.dense
     if d is not None and d.index is not None:
-        _save_dense(d.index, snap_dir, list(d.range), d.params.num_layers)
+        _save_dense(d.index, snap_dir, list(d.range))
     if coll.sparse is not None:
         _save_sparse(coll.sparse, snap_dir)
     if coll.tfidf is not None:
@@ -472,14 +478,27 @@ def load_collection_state(coll, snap_dir: str | Path) -> None:
         d._build()
         idx = d.index
         idx.store = _load_store(snap_dir, meta, z, d.dimension, d.device)
-        # a snapshot without a graph (every one the port writes) is served by
-        # the scan at any size; its tombstones stay in the mask below
-        idx.scan_only = bool(meta.get("scan_only"))
         alive = np.ones(idx.store.capacity, bool)
         saved_alive = np.asarray(z["alive"], bool)[: idx.store.capacity]
         alive[: len(saved_alive)] = saved_alive
-        idx.alive = torch.as_tensor(alive, device=idx.store.device)
-        idx.n_deleted = int(meta["n_deleted"])
+        if meta.get("scan_only"):
+            # no graph: served by the scan at any size, tombstones in the mask
+            idx.scan_only = True
+            idx.levels = np.asarray(z["levels"], np.int8).copy()
+            idx.level_counts = np.asarray(meta["level_counts"], np.int64)
+            idx.entry, idx.entry_level = int(meta["entry"]), int(meta["entry_level"])
+            idx.alive = torch.as_tensor(alive, device=idx.store.device)
+            idx.n_deleted = int(meta["n_deleted"])
+            idx._sync_capacity()
+        else:
+            graph = {name: load_chunked(snap_dir, name) for name in _GRAPH_ARRAYS}
+            graph.update(
+                levels=z["levels"], up_slot=z["up_slot"], alive=alive, level_counts=meta["level_counts"],
+                n_up=meta["n_up"], entry=meta["entry"], entry_level=meta["entry_level"],
+                n_deleted=meta["n_deleted"],
+            )
+            idx.adopt_graph(graph)
+            adopt_tracker(snap_dir, idx.tracker, list(_GRAPH_ARRAYS))
         if dense_rows is None and "internal_of" in meta:
             # pre-dense_rows layout kept the row maps in dense.msgpack
             dense_rows = {

@@ -14,8 +14,8 @@ construction, as the port's are) and its wire probe is pinned fast, so it
 ships exact f32 rows and queries as the port does. A second script over a
 collection with dense, sparse and tf-idf indexes drives the sparse, tf-idf
 and hybrid (with a ``query_text`` leg) routes through both apps, case by
-case; the graph's ``/neighbors`` answers 501 in both, the port's naming
-its ROADMAP item. Stored collections written by the reference, one with a
+case; the graph's ``/neighbors`` answers the same plain 501 "not
+implemented" in both. Stored collections written by the reference, one with a
 sparse index and one with a tf-idf index, are served by the port with the
 reference's answers."""
 
@@ -381,13 +381,14 @@ def route_answers(tmp_path_factory):
 @pytest.mark.parametrize("case", ROUTE_CASES)
 def test_not_ported_routes_answer_501(route_answers, case):
     """The sparse, tf-idf and hybrid (query_text) routes answer as the
-    reference's do; the graph's /neighbors answers 501 in both, the port's
-    naming its ROADMAP item."""
+    reference's do; the graph's /neighbors answers the reference's plain
+    501 "not implemented" in both."""
     ref, port = route_answers
     (j_status, j_body), (t_status, t_body) = ref[case], port[case]
     assert t_status == j_status, (t_body, j_body)
     if case == "neighbors":
-        assert t_status == 501 and "ROADMAP queue 1: the graph" in t_body["error"]
+        assert t_status == 501 and t_body == j_body and "not implemented" in t_body["error"]
+        assert "ROADMAP" not in t_body["error"]
         return
     _compare(t_body, j_body)
     if case.endswith("search") or case.endswith("hybrid"):
@@ -565,3 +566,43 @@ def test_concurrent_tfidf_searches_match_lone_searches(tmp_path):
         assert all(len(row) > 0 for row in got)
     finally:
         ctx.close()
+
+
+def test_graph_search_over_rest_equals_direct_calls(tmp_path):
+    """Above lowered serving limits (1,500 rows, limits 500) the dense
+    search, batch search and a 25% filter take the graph; over REST they
+    answer exactly as the direct Collection calls on the same batches."""
+    ctx = TAppContext(t_load_config(data_path=str(tmp_path)), admin_key=ADMIN, device="cpu")
+    coll = ctx.create_collection({"name": "g", "dense_vector": {"enabled": True, "dimension": DIM},
+                                  "metadata_schema": SCHEMA})
+    coll.create_dense_index(quantization={"type": "scalar", "data_type": "u8"})
+    x, q = _unit(1500, 6), _unit(6, 7)
+    coll.index_embeddings([{"id": i, "dense_values": x[i].tolist(),
+                            "metadata": {"color": "red" if i % 4 == 0 else "blue"}} for i in range(1500)])
+    d = coll.dense
+    d.flat_serve_threshold = d.graph_filter_min = 500
+    assert not d.index.scan_only and d.index.entry >= 0
+    red = {"Is": {"field_name": "color", "field_value": "red", "operator": "Equal"}}
+    want = {
+        "one": coll.search_dense(q[:1], K)[0],
+        "batch": coll.search_dense(q, 5),
+        "filtered": coll.search_dense(q[2:3], K, filter_dto=red)[0],
+    }
+
+    async def script(client):
+        h = await _login(client)
+        c = "/vectordb/collections/g"
+        one = await client.post(c + "/search/dense", headers=h, json={"query_vector": q[0].tolist(), "top_k": K})
+        batch = await client.post(c + "/search/batch-dense", headers=h,
+                                  json={"queries": [{"vector": v.tolist()} for v in q], "top_k": 5})
+        filt = await client.post(c + "/search/dense", headers=h,
+                                 json={"query_vector": q[2].tolist(), "top_k": K, "filter": red})
+        return {"one": (await one.json())["results"],
+                "batch": [r["results"] for r in (await batch.json())["responses"]],
+                "filtered": (await filt.json())["results"]}
+
+    got = _run_port(tmp_path, script, ctx)
+    assert got == want
+    assert len(want["one"]) == K and all(r["id"] % 4 == 0 for r in want["filtered"])
+    truth = np.argsort(-(q @ x.T), axis=1)[:, :5]
+    assert np.mean([len({r["id"] for r in row} & set(t)) / 5 for row, t in zip(want["batch"], truth)]) >= 0.9

@@ -166,7 +166,7 @@ def test_scores_gathered_and_rerank(case):
     c = case
     ids = np.random.default_rng(3).integers(-1, N, size=(B, 40)).astype(np.int32)
     want = np.asarray(JS._scores_gathered("cosine", "u8", D_PAD, c["q"], c["store"], jnp.asarray(ids)))
-    got = TS.scores_gathered("cosine", D_PAD, _tq(c["q"]), _tq(c["store"]), _t(ids).long()).numpy()
+    got = TS.scores_gathered("cosine", "u8", D_PAD, _tq(c["q"]), _tq(c["store"]), _t(ids).long()).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
     qf = c["q16"].astype(np.float32)
     want = np.asarray(JS._rerank("cosine", jnp.asarray(qf), jnp.asarray(c["raw16"]), jnp.asarray(ids)))

@@ -295,3 +295,38 @@ def test_sparse_answers_unimplemented(tmp_path):
         assert [m["id"] for m, ok in zip(tm, u) if ok] == [m["id"] for m, ok in zip(jm, u) if ok]
     assert "t9" in [m["id"] for m in port["tfidf_self"][1]]
     assert "t3" not in [m["id"] for m in port["tfidf_deleted"][1]]
+
+
+def test_graph_search_over_grpc_equals_direct_calls(tmp_path):
+    """Above lowered serving limits (1,000 rows, limit 300) a dense
+    FindSimilarVectors takes the graph and answers as the direct
+    Collection call (scores to the protocol's f32)."""
+    tctx = TAppContext(t_load_config(data_path=str(tmp_path)), admin_key=ADMIN, device="cpu")
+    try:
+        coll = tctx.create_collection({"name": "g", "dense_vector": {"enabled": True, "dimension": DIM}})
+        coll.create_dense_index(quantization={"type": "scalar", "data_type": "u8"})
+        x = np.random.default_rng(8).normal(size=(1000, DIM)).astype(np.float32)
+        x /= np.linalg.norm(x, axis=1, keepdims=True)
+        coll.index_embeddings([{"id": i, "dense_values": x[i].tolist()} for i in range(1000)])
+        coll.dense.flat_serve_threshold = 300
+        assert not coll.dense.index.scan_only
+        server = t_build_server(tctx, TSessions(ADMIN), address="127.0.0.1:0")
+        port = server.add_insecure_port("127.0.0.1:0")
+        server.start()
+        channel = grpc.insecure_channel(f"127.0.0.1:{port}")
+        try:
+            tok = _call(channel, "AuthService", "CreateSession",
+                        pb.CreateSessionRequest(username="admin", password=ADMIN), pb.CreateSessionResponse).access_token
+            for i in (3, 400, 999):
+                want = coll.search_dense(x[i : i + 1], K)[0]
+                resp = _call(channel, "VectorsService", "FindSimilarVectors", pb.FindSimilarVectorsRequest(
+                    collection_id="g", dense=pb.FindSimilarDenseVectorsQuery(vector=x[i].tolist(), top_k=K),
+                ), pb.FindSimilarVectorsResponse, tok)
+                assert [m.id for m in resp.matches] == [str(r["id"]) for r in want]
+                assert want[0]["id"] == i
+                np.testing.assert_allclose([m.score for m in resp.matches], [r["score"] for r in want], rtol=1e-6)
+        finally:
+            channel.close()
+            server.stop(0)
+    finally:
+        tctx.close()

@@ -3,16 +3,17 @@ AppContext (JAX on the CPU, graph built) ingests 2,000 x 64 clustered rows
 (bench.py's gen_clustered formula) per kind (u8 "auto", quaternary, f32)
 through a transaction with metadata and deletes, then streams a few more upserts and a delete, and closes: its
 snapshot holds the graph arrays, and the streamed ops stay in a durable
-WAL. The port's AppContext (device "cpu") opens the same data dir, skips
-the graph, loads the store and replays the WAL. Its dense searches,
-filtered and unfiltered, give the reference's ids where the reference's
-scores are untied, with scores within rtol 1e-5, atol 1e-6; GET vector
-gives the same record. The port then writes its own (scan-only) snapshot,
-which answers identically after a restart and which the reference loads
-back. The reference serves tombstoned rows from a scan-only snapshot (its
-loader replaces ``alive`` by a (1,) dummy that ``search_brute_device``
-broadcasts), which its result formatting then drops, so its lists there
-are the port's lists less some entries, in the same order.
+WAL. The port's AppContext (device "cpu") opens the same data dir, loads
+the store and the graph and replays the WAL (its insertion wave links the
+streamed rows). Its dense searches, filtered and unfiltered, give the
+reference's ids where the reference's scores are untied, with scores
+within rtol 1e-5, atol 1e-6; GET vector gives the same record. So do its
+graph searches (``flat_serve_threshold`` and ``graph_filter_min`` set to
+1,000, below the 2,010 rows: the unfiltered graph route and the
+oversampled, post-filtered graph route of a 25% filter). The port then
+writes its own snapshot, graph included, which answers identically after
+a restart, and which the reference loads back with the port's answers,
+graph answers included.
 
 A sparse collection goes the same way: the reference writes 1,500 docs
 (zipf dims over a 500-dim vocab, 16 pairs each) through a transaction
@@ -23,13 +24,18 @@ reference's layout), answers identically after a restart, and the
 reference loads that snapshot back with the port's answers. A tf-idf
 collection (1,500 zipf texts) goes the same way through ``tfidf.msgpack``.
 
-A scan-only snapshot is served at any size: the port's own snapshot of
-2,010 rows with 30 deletes, loaded by each package with
-``flat_serve_threshold`` and ``graph_filter_min`` set to 1,000, answers
-masked and unmasked searches in both; the port's lists are those it gives
-under the limits, hold no deleted id, and equal the reference's wherever
-the reference's lists hold no tombstoned row. A freshly built index above
-the limits still needs the graph."""
+A scan-only snapshot (an index with no graph, as earlier versions of the
+port wrote them) is served at any size: the port's snapshot of 2,010 rows
+with 30 deletes, rewritten without its graph and loaded by each package
+with the limits set to 1,000, answers masked and unmasked searches in both;
+the port's lists are those it gives under the limits, hold no deleted id,
+and equal the reference's wherever the reference's lists hold no
+tombstoned row (the reference serves tombstoned rows from a scan-only
+snapshot: its loader replaces ``alive`` by a (1,) dummy that
+``search_brute_device`` broadcasts, and its result formatting then drops
+them, so its lists there are the port's less some entries, in the same
+order). A freshly built index above the limits answers by its graph,
+and a compaction rebuilds the graph."""
 
 import numpy as np
 import pytest
@@ -126,15 +132,27 @@ def _answers(ctx, q):
     return out
 
 
-def _scan_only_answers(ctx, q):
-    """Dense answers with the serving limits below the 2,010 rows."""
+def _limited_answers(ctx, q, scan_only: bool):
+    """Dense answers with the serving limits below the 2,010 rows: the
+    graph's, or the scan's for an index with no graph."""
     out = {}
     for name in KINDS:
+        d = ctx.get_collection(name).dense
+        limits = d.flat_serve_threshold, d.graph_filter_min
+        d.flat_serve_threshold = d.graph_filter_min = 1000
+        assert d.index.scan_only == scan_only
         coll = ctx.get_collection(name)
-        coll.dense.flat_serve_threshold = coll.dense.graph_filter_min = 1000
-        assert coll.dense.index.scan_only
         out[name] = {"plain": coll.search_dense(q, K), "filtered": coll.search_dense(q, K, filter_dto=RED)}
+        d.flat_serve_threshold, d.graph_filter_min = limits
     return out
+
+
+def _scan_only_answers(ctx, q):
+    return _limited_answers(ctx, q, scan_only=True)
+
+
+def _graph_answers(ctx, q):
+    return _limited_answers(ctx, q, scan_only=False)
 
 
 def _reference_writes(data_dir, x, q):
@@ -152,7 +170,7 @@ def _reference_writes(data_dir, x, q):
         coll.index_version(coll.commit_transaction(txn.txn_id), txn)
         coll.stream_upsert([_vec(i, x) for i in range(N, N + 10)])
         coll.stream_delete(41)
-        assert not coll.dense.index.scan_only  # the snapshot holds the graph
+    graph = _graph_answers(ctx, q)  # the snapshot holds the graph
     dims, vals = sparse_corpus(N_SP + 10)
     coll = ctx.create_collection({"name": "sparse", "sparse_vector": {"enabled": True}})
     coll.create_sparse_index(quantization=64, sample_threshold=300)
@@ -174,6 +192,7 @@ def _reference_writes(data_dir, x, q):
     coll.stream_upsert([{"id": i, "text": texts[i]} for i in range(N_SP, N_SP + 10)])
     coll.stream_delete(41)
     answers = _answers(ctx, q)
+    answers["graph"] = graph
     ctx.indexing.stop()
     ctx.meta.close()
     return answers
@@ -191,18 +210,31 @@ def runs(tmp_path_factory):
         wals_before = {name: len(list(p.parent.glob("*.wal"))) for name, p in snap.items()}
         port_ctx = TAppContext(t_load_config(data_path=str(data_dir)), admin_key=ADMIN, device="cpu")
         port = _answers(port_ctx, q)
+        port["graph"] = _graph_answers(port_ctx, q)
         wals_after = {name: len(list(p.parent.glob("*.wal"))) for name, p in snap.items()}
         graph_after = {name: (p / "adj0.meta.json").exists() for name, p in snap.items()}
         port_ctx.close()
-        restart_ctx = TAppContext(t_load_config(data_path=str(data_dir)), admin_key=ADMIN, device="cpu")
-        restart = _answers(restart_ctx, q)
-        restart_scan = _scan_only_answers(restart_ctx, q)
-        restart_ctx.close()
         back_ctx = JAppContext(j_load_config(data_path=str(data_dir)), admin_key=ADMIN)
         back = _answers(back_ctx, q)
-        back_scan = _scan_only_answers(back_ctx, q)
+        back["graph"] = _graph_answers(back_ctx, q)
         back_ctx.indexing.stop()
         back_ctx.meta.close()
+        restart_ctx = TAppContext(t_load_config(data_path=str(data_dir)), admin_key=ADMIN, device="cpu")
+        restart = _answers(restart_ctx, q)
+        restart["graph"] = _graph_answers(restart_ctx, q)
+        # rewrite the dense snapshots without their graphs
+        for name in KINDS:
+            coll = restart_ctx.get_collection(name)
+            coll.dense.index.scan_only = True
+            coll.save_snapshot()
+        restart_ctx.close()
+        scan_ctx = TAppContext(t_load_config(data_path=str(data_dir)), admin_key=ADMIN, device="cpu")
+        restart_scan = _scan_only_answers(scan_ctx, q)
+        scan_ctx.close()
+        back_scan_ctx = JAppContext(j_load_config(data_path=str(data_dir)), admin_key=ADMIN)
+        back_scan = _scan_only_answers(back_scan_ctx, q)
+        back_scan_ctx.indexing.stop()
+        back_scan_ctx.meta.close()
     return {
         "ref": ref, "port": port, "restart": restart, "back": back,
         "restart_scan": restart_scan, "back_scan": back_scan,
@@ -249,12 +281,36 @@ def test_get_vector_matches_reference(runs, kind):
 
 @pytest.mark.parametrize("kind", list(KINDS))
 def test_port_snapshot_round_trip(runs, kind):
-    """The port replayed the streamed WAL, wrote its own scan-only snapshot
-    (no graph files), and a restarted port answers identically."""
+    """The port replayed the streamed WAL, wrote its own snapshot (graph
+    files included), and a restarted port answers identically, by the
+    scan and by the graph."""
     graph_before, wals_before, wals_after, graph_after = runs["files"]
-    assert graph_before[kind] and not graph_after[kind]
+    assert graph_before[kind] and graph_after[kind]
     assert (wals_before[kind], wals_after[kind]) == (1, 0)
     assert runs["restart"][kind] == runs["port"][kind]
+    assert runs["restart"]["graph"][kind] == runs["port"]["graph"][kind]
+
+
+@pytest.mark.parametrize("mode", ["plain", "filtered"])
+@pytest.mark.parametrize("kind", list(KINDS))
+def test_reference_graph_snapshot_answers_in_port(runs, kind, mode):
+    """The reference's graph, loaded by the port, answers as the reference's
+    did (ids where untied); the filtered lists hold only red rows."""
+    t, j = runs["port"]["graph"][kind][mode], runs["ref"]["graph"][kind][mode]
+    _same_results(t, j)
+    if mode == "filtered":
+        assert all(r["id"] % 4 == 0 for row in t for r in row)
+
+
+@pytest.mark.parametrize("mode", ["plain", "filtered"])
+@pytest.mark.parametrize("kind", list(KINDS))
+def test_port_graph_snapshot_answers_in_reference(runs, kind, mode):
+    """The port's graph snapshot, loaded by the reference, answers as the
+    port did; no deleted id comes back from either."""
+    t, j = runs["port"]["graph"][kind][mode], runs["back"]["graph"][kind][mode]
+    _same_results(t, j)
+    dead = {41, *range(3, 90, 3)}
+    assert not dead & {r["id"] for row in t for r in row}
 
 
 def _in_order_subset(j_rows, t_rows):
@@ -294,9 +350,11 @@ def test_reference_loads_port_sparse_snapshot(runs):
 
 @pytest.mark.parametrize("kind", list(KINDS))
 def test_reference_loads_port_snapshot(runs, kind):
+    """The port's snapshot carries its tombstones (it holds a graph), so the
+    reference's scan answers equal the port's."""
     back, port = runs["back"][kind], runs["port"][kind]
-    _in_order_subset(back["plain"], port["plain"])
-    _in_order_subset(back["filtered"], port["filtered"])
+    _same_results(back["plain"], port["plain"])
+    _same_results(back["filtered"], port["filtered"])
     assert back["vectors"] == port["vectors"]
 
 
@@ -345,24 +403,35 @@ def test_scan_only_snapshot_served_above_threshold(runs, kind):
 
 
 def test_fresh_index_above_threshold_needs_the_graph():
-    """Only a scan-only index is served above the limits; it stays one
-    through a compaction, which rebuilds its store without a graph."""
+    """A freshly built index above the limits answers by its graph: the
+    unfiltered route and the oversampled, post-filtered route of a
+    permissive filter; a compaction rebuilds the graph. An index with no
+    graph (scan-only) takes the scan at any size."""
     from cosdata_tpu_torch.core.collection import DenseIndexHandle
 
     x, q = gen_clustered(300, 4)
+    truth = np.argsort(-(q @ x.T), axis=1)[:, :K]
     d = DenseIndexHandle(DIM, "cpu", quantization={"type": "scalar", "data_type": "u8"})
     d.add_batch(list(range(300)), x)
-    d.flat_serve_threshold = d.graph_filter_min = 100
-    mask = np.ones(300, bool)
-    for row_mask in (None, mask):
-        with pytest.raises(NotImplementedError, match="the graph"):
-            d.search(q, K, row_mask=row_mask)
-    d.index.scan_only = True
+    assert not d.index.scan_only and d.index.entry >= 0
     want = d.search(q, K)
+    np.testing.assert_array_equal(want[0], truth)  # the exact scan under the limits
+    d.flat_serve_threshold = d.graph_filter_min = 100
+    ids, _ = d.search(q, K)
+    assert np.mean([len(set(a) & set(b)) / K for a, b in zip(ids, truth)]) >= 0.9
+    mask = np.arange(300) % 2 == 0
+    ids, _ = d.search(q, K, row_mask=mask)
+    assert (ids >= 0).all() and (ids % 2 == 0).all()
     for i in range(0, 300, 3):
         d.delete(i)
     d.flush()
-    assert d.index.n == 200 and d.index.scan_only
+    assert d.index.n == 200 and not d.index.scan_only and d.index.n_deleted == 0
     ids, _ = d.search(q, K, row_mask=np.ones(200, bool))
     assert (ids >= 0).all() and not (ids % 3 == 0).any()
-    assert [i for i in want[0][0] if i % 3] == [i for i in d.search(q, K)[0][0] if i in set(want[0][0])]
+    live = [i for i in range(300) if i % 3]
+    truth_live = np.asarray(live)[np.argsort(-(q @ x[live].T), axis=1)[:, :K]]
+    ids, _ = d.search(q, K)
+    assert np.mean([len(set(a) & set(b)) / K for a, b in zip(ids, truth_live)]) >= 0.9
+    d.index.scan_only = True
+    ids, _ = d.search(q, K)
+    np.testing.assert_array_equal(ids, truth_live)

@@ -61,9 +61,29 @@ above the limit by the scan with the scan's answers; 18 the HNSW graph of
 phase 3: HNSWIndex.search at ef 128, 256 and 512 (b1024, recall@10
 gated at 0.99 and 0.995 for ef 128 and 256), 8 single queries, a profile,
 the quaternary graph at ef 256, and a quaternary exact-path bulk build
-(K2 through the chunked scan). K1 and K2 launch counts are read around
-each path. Any failure exits non-zero. The last line is one JSON object
-naming the device.
+(K2 through the chunked scan); 19 beyond the device budget (the phase-3
+and phase-6 handles freed first): a u8 HNSWIndex with host raw rows over
+the same 1M rows (the reference bench's beyond_hbm build), its resident
+scan, then force_spill(keep_graph=True) and the streamed scan at b1024 and
+b64 (K1 once per 65,536-row chunk; recall@10, ids equal to the resident
+scan on untied slots, bytes streamed beside a measured pinned H2D rate,
+device time by kernel group), the host-codes graph at ef 128 and 256 b64
+beside the streamed scan (ef 128 gated at recall@10 0.99 against it; the
+resident graph's recall and the host-codes beam's with 8x its random
+seeds printed beside), promotion back to the device (answers identical
+to the resident scan, one K1 launch) and the re-pin of a spilled
+doubling; the reference bench's beyond_hbm section at its 262,144 rows
+(the host-codes graph at ef 128 gated at recall 0.99 against the streamed
+exact scan); a quaternary index spilled while empty that ingests the 1M
+rows into the host tier and streams them through K2 (b1024, 20x host
+rerank); and a raw_storage "disk" collection of phase 9's 65,536 rows
+written over REST under a pinned COSDATA_HBM_GB, whose codes spill while
+the transaction is indexed, searched, filtered and streamed a delete
+against an exact oracle, then restarted with the budget pinned (codes
+loaded on the host, answers identical, gRPC equal to REST) and lifted
+(flush promotes the codes; answers identical, K1 launched). K1 and K2
+launch counts are read around each path. Any failure exits non-zero. The last line is one JSON
+object naming the device.
 """
 
 from __future__ import annotations
@@ -73,6 +93,7 @@ import concurrent.futures
 import http.client
 import importlib.util
 import json
+import os
 import socket
 import statistics
 import subprocess
@@ -94,7 +115,7 @@ try:
     from cosdata_tpu_torch.indexes.hnsw import HNSWIndex
     from cosdata_tpu_torch.indexes.inverted import InvertedIndex
     from cosdata_tpu_torch.indexes.tf_idf import TFIDFIndex
-    from cosdata_tpu_torch.ops import sparse_kernels
+    from cosdata_tpu_torch.ops import flat_scan, sparse_kernels
     from cosdata_tpu_torch.ops.kernels import subbyte_scan, u8_scan
     from cosdata_tpu_torch.ops.quantize import quantize_subbyte, quantize_u8
     from cosdata_tpu_torch.text.processing import process_text_query
@@ -1527,6 +1548,355 @@ def graph_phase(u8_handle: DenseIndexHandle, q4_handle: DenseIndexHandle, x, q, 
     return k2
 
 
+def untied_equal(ids, want_ids, want_scores) -> tuple[bool, float]:
+    """Whether ``ids`` equal ``want_ids`` on every slot whose score in
+    ``want_scores`` has no near-tie on either side (the last slot never
+    counts), and the share of slots compared."""
+    s = np.asarray(want_scores, np.float64)
+    tol = 1e-5 * np.abs(s) + 1e-6
+    gap = s[:, :-1] - s[:, 1:]
+    inf, zero = np.full((s.shape[0], 1), np.inf), np.zeros((s.shape[0], 1))
+    untied = (np.concatenate([inf, gap], 1) > tol) & (np.concatenate([gap, zero], 1) > tol)
+    return bool((np.asarray(ids)[untied] == np.asarray(want_ids)[untied]).all()), float(untied.mean())
+
+
+def h2d_gbps(dev) -> float:
+    """Host-to-device rate of one pinned 256 MB copy (CUDA events, median of 5)."""
+    src = torch.empty(256 << 20, dtype=torch.uint8, pin_memory=True)
+    dst = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    ms = cuda_ms(lambda: dst.copy_(src, non_blocking=True), 5)
+    return (256 << 20) / ms / 1e6
+
+
+#: device-time buckets of a streamed search, by kernel name
+SPLIT = (("copy", ("Memcpy HtoD",)), ("K1", ("u8_bin_max",)), ("K2", ("subbyte_code_scores",)),
+         ("query unpack", ("unpack_queries",)), ("select and merge", ("topk", "sort", "radix", "Sort", "TopK")))
+
+
+def profile_split(name: str, fn, card: str) -> dict:
+    """One torch.profiler pass over ``fn``: device ms by bucket (copies,
+    K1, K2, the query unpack, top-k selection and merges, and the rest:
+    the rescore gathers and products, masks, the rerank), beside the wall
+    time. Copies overlap kernels, so the sum may pass the wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    split = {key: 0.0 for key, _ in SPLIT}
+    split["rescore and other"] = 0.0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        key = next((k for k, words in SPLIT if any(w in e.key for w in words)), "rescore and other")
+        split[key] += device_us(e) / 1e3
+    text = ", ".join(f"{k} {v:.2f}" for k, v in split.items())
+    print(f"  {name} device ms: {text}; wall {wall:.1f} ms (under the profiler) [{card}]", flush=True)
+    return split
+
+
+def spill_u8_phase(x, q, truth, dev, card: str) -> dict:
+    """Phase 19a: a u8 HNSWIndex with host raw rows over all N rows (the
+    reference bench's beyond_hbm build), its device scan and graph, then
+    force_spill(keep_graph=True): the streamed scan (K1 per chunk) at b1024
+    and b64 against the oracle and the resident scan, the host-codes graph
+    at ef 128 b64 against the streamed scan (gated at 0.99), promotion back
+    to the device, and the re-pin of a spilled doubling. Returns K1's
+    launches (counted over every search) and its launches per streamed
+    b1024 batch."""
+    launches = 0
+    t0 = time.perf_counter()
+    idx = HNSWIndex(DIM, dev, kind="u8", range_=tune_dense_range(x[:1000].cpu().numpy()), seed=5,
+                    keep_raw="host", initial_capacity=N)
+    idx.add(x)
+    torch.cuda.synchronize()
+    print(f"u8 HNSWIndex(keep_raw='host') of {N} rows: {time.perf_counter() - t0:.1f} s (graph "
+          f"{idx.last_build_stats['graph_s']} s); device store {idx.store.device_nbytes()} B, host raw "
+          f"{idx.store.raw_host.numel() * 4} B pinned {idx.store.raw_host.is_pinned()} [{card}]", flush=True)
+    qb, qs = q[:1024], q[:64]
+    reset_counts()
+    t_base, (base_ids, base_s) = timed_search(lambda: idx.search_brute(qb, 10), reps=3)
+    resident_graph = {ef: idx.search(qs, 10, ef=ef)[0] for ef in (128, 256)}
+    launches += u8_scan.u8_bin_max.launches
+    check_results("resident search_brute b1024 (host rerank)", base_ids, truth[:1024], t_base, card, True)
+    t0 = time.perf_counter()
+    idx.force_spill(keep_graph=True)
+    t_spill = time.perf_counter() - t0
+    if not (idx.store.codes_on_host and idx.graph_on_spill and idx.store.device_nbytes() == 0):
+        fail("force_spill(keep_graph=True) did not spill the codes")
+    cap = idx.cap
+    chunks = -(-cap // flat_scan.STREAM_CHUNK)
+    bw = h2d_gbps(dev)
+    out = {}
+    for b, qq in ((1024, qb), (64, qs)):
+        reset_counts()
+        idx.search_brute(qq, 10)
+        per_batch = u8_scan.u8_bin_max.launches
+        nbytes = flat_scan.streamed_flat_topk.last_stats["bytes"]
+        t, (ids, sc) = timed_search(lambda: idx.search_brute(qq, 10), reps=3)
+        launches += u8_scan.u8_bin_max.launches
+        check_results(f"streamed search_brute b{b} (K1 per chunk, host rerank)", ids, truth[:b], t, card, True)
+        same, share = untied_equal(ids, base_ids[:b], base_s[:b])
+        bound_ms = nbytes / (bw * 1e6)
+        print(f"  K1 launches per batch {per_batch} (capacity {cap}: {chunks} chunks of "
+              f"{flat_scan.STREAM_CHUNK}); streamed {nbytes} B per batch; pinned H2D {bw:.2f} GB/s, so the copy "
+              f"bound is {bound_ms:.2f} ms, {bound_ms / (t * 1e3):.1%} of the batch; ids equal to the resident "
+              f"scan on untied slots {same} ({share:.1%} of slots) [{card}]", flush=True)
+        if per_batch != chunks:
+            fail(f"the streamed u8 scan launched K1 {per_batch} times, want {chunks}")
+        if not same:
+            fail("the streamed u8 scan's ids differ from the resident scan's on untied slots")
+        out[b] = {"ms": t * 1e3, "ids": ids, "bytes": nbytes, "per_batch": per_batch}
+    reset_counts()
+    out["split"] = profile_split("streamed u8 b1024", lambda: idx.search_brute(qb, 10), card)
+    for ef in (128, 256):
+        rec = hostcodes_graph(idx, qs, out[64], ef, f"{N} rows", card)
+        resident = recall_against(resident_graph[ef], out[64]["ids"])
+        print(f"  the same graph resident (upper levels, before the spill) ef={ef}: recall@10 vs the streamed "
+              f"exact scan {resident:.4f} [{card}]", flush=True)
+        if ef == 128 and rec < MIN_RECALL:
+            fail(f"host-codes graph recall {rec:.4f} < {MIN_RECALL} at {N} rows, ef 128")
+    # not gated: the host-codes beam starts from the entry and random seeds
+    # in place of upper levels; with 8x the seeds its recall shows what they cost
+    idx.HOSTCODES_SEEDS = 8 * HNSWIndex.HOSTCODES_SEEDS
+    g_ids, _ = idx.search(qs, 10, ef=128)
+    del idx.HOSTCODES_SEEDS
+    print(f"  host-codes graph ef=128 with {8 * HNSWIndex.HOSTCODES_SEEDS} random seeds: recall@10 vs the "
+          f"streamed exact scan {recall_against(g_ids, out[64]['ids']):.4f} [{card}]", flush=True)
+    launches += u8_scan.u8_bin_max.launches
+    os.environ.pop("COSDATA_HBM_GB", None)
+    t0 = time.perf_counter()
+    if not idx.maybe_promote() or idx.store.codes_on_host:
+        fail("maybe_promote with no budget pinned left the codes on the host")
+    t_promote = time.perf_counter() - t0
+    reset_counts()
+    ids, sc = idx.search_brute(qb, 10)
+    k1_promoted = u8_scan.u8_bin_max.launches
+    launches += k1_promoted
+    identical = bool((ids == base_ids).all() and (sc == base_s).all())
+    print(f"spill {t_spill:.2f} s, promote {t_promote:.2f} s; promoted search_brute b1024 identical to the "
+          f"resident baseline {identical}, K1 launches {k1_promoted} [{card}]", flush=True)
+    if not identical or k1_promoted != 1:
+        fail(f"after promotion: identical {identical}, K1 launches {k1_promoted} (want 1)")
+    idx.force_spill()
+    t0 = time.perf_counter()
+    idx.store.grow_to(2 * cap)
+    t_repin = time.perf_counter() - t0
+    print(f"re-pin: a spilled doubling to {2 * cap} rows (codes, sums, magnitudes and host raw rows, "
+          f"{2 * cap * (idx.store.dim_pad * 5 + 8)} B pinned, {cap * (idx.store.dim_pad * 5 + 8)} B copied) "
+          f"{t_repin:.2f} s [{card}]", flush=True)
+    del idx
+    torch.cuda.empty_cache()
+    out["launches"], out["per_batch"] = launches, out[1024]["per_batch"]
+    return out
+
+
+def recall_against(ids, want_ids) -> float:
+    """recall@10 of host ids against host ids (the streamed exact scan's)."""
+    return float(np.mean([len(set(g) & set(e)) / 10 for g, e in zip(np.asarray(ids).tolist(),
+                                                                    np.asarray(want_ids).tolist())]))
+
+
+def hostcodes_graph(idx, qs, scan: dict, ef: int, what: str, card: str) -> float:
+    """The host-codes graph of a kept-graph spill at ``ef``, b64: recall@10
+    against the streamed exact scan's ids (``scan``), time beside the
+    scan's, waves and bytes uploaded. Returns the recall."""
+    idx.search(qs, 10, ef=ef)  # warm-up
+    t_g, (g_ids, _) = timed_search(lambda: idx.search(qs, 10, ef=ef), reps=3)
+    st = idx.last_hostcodes_stats
+    g_rec = recall_against(g_ids, scan["ids"])
+    scan_qps, graph_qps = len(qs) * 1e3 / scan["ms"], len(qs) / t_g
+    print(f"host-codes graph {what} ef={ef} b{len(qs)}: recall@10 vs the streamed exact scan {g_rec:.4f}, "
+          f"{t_g * 1e3:.1f} ms = {graph_qps:.1f} q/s; {st['waves']} waves, {st['rows']} rows = {st['bytes']} B "
+          f"uploaded, {st['bytes'] / max(st['waves'], 1):.0f} B per wave; streamed scan {scan_qps:.1f} q/s; winner "
+          f"{'graph' if graph_qps > scan_qps else 'scan'} [{card}]", flush=True)
+    return g_rec
+
+
+#: the reference bench's beyond_hbm rows (bench.py:815, min(n, 262,144))
+N_BEYOND = 262_144
+
+
+def beyond_hbm_section(x, q, dev, card: str) -> int:
+    """Phase 19a's second half, the reference bench's beyond_hbm section
+    (bench.py:806-851) at its 262,144 rows: a u8 index with host raw rows
+    (seed 5), force_spill(keep_graph=True), the streamed exact scan b64 as
+    the oracle, the host-codes graph at ef 128 gated at recall@10 0.99.
+    Returns K1's launches."""
+    idx = HNSWIndex(DIM, dev, kind="u8", range_=tune_dense_range(x[:1000].cpu().numpy()), seed=5,
+                    keep_raw="host", initial_capacity=N_BEYOND)
+    t0 = time.perf_counter()
+    idx.add(x[:N_BEYOND])
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    idx.force_spill(keep_graph=True)
+    qs = q[:64]
+    reset_counts()
+    idx.search_brute(qs, 10)
+    per_batch = u8_scan.u8_bin_max.launches
+    t, (ids, _) = timed_search(lambda: idx.search_brute(qs, 10), reps=3)
+    launches = u8_scan.u8_bin_max.launches
+    print(f"beyond_hbm at {N_BEYOND} rows: build {t_build:.1f} s; streamed exact scan b64 {t * 1e3:.1f} ms = "
+          f"{64 / t:.1f} q/s, K1 launches {per_batch} per batch [{card}]", flush=True)
+    rec = hostcodes_graph(idx, qs, {"ids": ids, "ms": t * 1e3}, 128, f"{N_BEYOND} rows", card)
+    if rec < MIN_RECALL:
+        fail(f"host-codes graph recall {rec:.4f} < {MIN_RECALL} at {N_BEYOND} rows")
+    del idx
+    torch.cuda.empty_cache()
+    return launches
+
+
+def spill_q4_phase(x, q, truth, dev, card: str) -> tuple[int, int, int, int]:
+    """Phase 19b: a quaternary HNSWIndex with host raw rows, spilled while
+    empty, takes all N rows into the host tier (quantized on the card);
+    the streamed scan (K2 per chunk, one query unpack) b1024 with the 20x
+    host rerank. Returns K2's and the unpack's launches, then each's
+    launches per batch."""
+    idx = HNSWIndex(DIM, dev, kind="quaternary", keep_raw="host", initial_capacity=N)
+    idx.force_spill()
+    t0 = time.perf_counter()
+    for s in range(0, N, ADD_BATCH):
+        idx.add(x[s : s + ADD_BATCH])
+    t_add = time.perf_counter() - t0
+    if not (idx.store.codes_on_host and idx.scan_only and idx.n == N):
+        fail("the quaternary index did not ingest into the host tier")
+    print(f"quaternary spilled ingest of {N} rows: {t_add:.1f} s = {N / t_add:.0f} rows/s [{card}]", flush=True)
+    chunks = -(-idx.cap // flat_scan.STREAM_CHUNK)
+    qb = q[:1024]
+    reset_counts()
+    idx.search_brute(qb, 10)
+    k2, unpack = subbyte_scan.subbyte_code_scores.launches, subbyte_scan.unpack_query_codes.launches
+    t, (ids, _) = timed_search(lambda: idx.search_brute(qb, 10), reps=3)
+    check_results("quaternary streamed search_brute b1024 (K2 per chunk, 20x host rerank)", ids, truth[:1024], t,
+                  card, True)
+    print(f"  K2 launches per batch {k2}, query unpack {unpack} (capacity {idx.cap}: {chunks} chunks); streamed "
+          f"{flat_scan.streamed_flat_topk.last_stats['bytes']} B per batch [{card}]", flush=True)
+    if k2 != chunks or unpack != 1:
+        fail(f"the streamed quaternary scan launched K2 {k2} times (want {chunks}), the unpack {unpack} (want 1)")
+    profile_split("streamed quaternary b1024", lambda: idx.search_brute(qb, 10), card)
+    k2_all, unpack_all = subbyte_scan.subbyte_code_scores.launches, subbyte_scan.unpack_query_codes.launches
+    del idx
+    torch.cuda.empty_cache()
+    return k2_all, unpack_all, k2, unpack
+
+
+#: phase 19c's budget: below the 65,536-row u8 store's 50.9 MB, so growth
+#: spills while the transaction is indexed
+SPILL_BUDGET_GB = 4 / 1024
+
+
+def spill_rest_phase(data_dir: str, x_sp: np.ndarray, q_rest: np.ndarray, dev, card: str) -> int:
+    """Phase 19c: a raw_storage "disk" collection written over REST under a
+    pinned budget (its codes spill while the transaction is indexed),
+    searched, filtered and streamed a delete against an exact oracle; a
+    restart with the budget still pinned (codes loaded onto the host) and
+    gRPC; a restart with it lifted, whose flush promotes the codes so that
+    the device scan (K1, the store being one scan chunk) serves. Returns
+    K1's launches."""
+    n = len(x_sp)
+    os.environ["COSDATA_HBM_GB"] = str(SPILL_BUDGET_GB)
+    xd = torch.as_tensor(x_sp, dtype=torch.float32, device=dev)
+    qr = q_rest[:256]
+    truth = exact_top10(torch.as_tensor(qr, dtype=torch.float32, device=dev), xd)
+    ctx = AppContext(load_config(data_path=data_dir), admin_key=ADMIN_KEY, device=dev)
+    server = RestServer(ctx)
+    client = RestClient(server.port)
+    client.login()
+    c = "/vectordb/collections/spill"
+    client.ok("POST", "/vectordb/collections", {
+        "name": "spill", "dense_vector": {"enabled": True, "dimension": DIM},
+        "metadata_schema": {"fields": [{"name": "half", "values": ["a", "b"]}], "supported_conditions": []},
+    })
+    client.ok("POST", c + "/indexes/dense", {"name": "spill_dense", "distance_metric_type": "cosine",
+                                             "quantization": {"type": "auto"}, "raw_storage": "disk"})
+    t0 = time.perf_counter()
+    txn = client.ok("POST", c + "/transactions", {})["transaction_id"]
+    rows = x_sp.tolist()
+    for s in range(0, n, UPSERT_ROWS):
+        vectors = [{"id": i, "dense_values": rows[i], **({"metadata": {"half": "a" if i % 4 == 0 else "b"}}
+                                                         if i % 2 == 0 else {})} for i in range(s, s + UPSERT_ROWS)]
+        client.ok("POST", f"{c}/transactions/{txn}/upsert", {"vectors": vectors})
+    client.ok("POST", f"{c}/transactions/{txn}/commit", {})
+    while client.ok("GET", f"{c}/transactions/{txn}/status")["status"] != "complete":
+        if time.perf_counter() - t0 > 600:
+            fail("the spilled transaction did not complete")
+        time.sleep(0.2)
+    idx = ctx.get_collection("spill").dense.index
+    print(f"REST ingest of {n} x {DIM} (raw_storage 'disk', budget {SPILL_BUDGET_GB * 1024:.0f} MiB) in "
+          f"{time.perf_counter() - t0:.1f} s; codes on the host {idx.store.codes_on_host}, scan_only "
+          f"{idx.scan_only}, raw rows in {idx.store._raw_path} [{card}]", flush=True)
+    if not (idx.store.codes_on_host and idx.store.keep_raw == "disk"):
+        fail("the collection's store did not spill under its budget")
+    reset_counts()
+    ids, _, dt, lat = batch_search(client, "spill", qr, WORKERS)
+    served_line(f"spilled REST /search/batch-dense {n} rows", ids, truth.cpu().numpy(), dt, lat, card)
+    flt = {"Is": {"field_name": "half", "field_value": "a", "operator": "Equal"}}
+    res = client.ok("POST", c + "/search/dense", {"query_vector": qr[0].tolist(), "top_k": 10, "filter": flt})
+    got = [r["id"] for r in res["results"]]
+    quarter = torch.arange(0, n, 4, device=dev)
+    want = quarter[exact_top10(torch.as_tensor(qr[:1], dtype=torch.float32, device=dev), xd[quarter])[0]].tolist()
+    if len(got) != 10 or any(i % 4 for i in got) or len(set(got) & set(want)) < 9:
+        fail(f"spilled filtered search {got}, exact {want}")
+    victim = int(ids[0, 0])
+    client.ok("DELETE", f"{c}/streaming/vectors/{victim}")
+    res = client.ok("POST", c + "/search/dense", {"query_vector": x_sp[victim].tolist(), "top_k": 10})["results"]
+    if victim in [r["id"] for r in res] or len(res) != 10:
+        fail(f"spilled streamed delete of {victim}: it came back")
+    seq = batch_search(client, "spill", qr, 1)
+    launches = u8_scan.u8_bin_max.launches
+    print(f"spilled filtered search: ok; streamed delete of {victim}: ok; K1 launches {launches} [{card}]", flush=True)
+    if launches == 0:
+        fail("the spilled REST searches never launched K1")
+    client.close()
+    server.close()
+    ctx.close()
+    idx.store.close()  # its raw rows' file (the snapshot holds them)
+    for pinned in (True, False):
+        if not pinned:
+            os.environ.pop("COSDATA_HBM_GB", None)
+        ctx = AppContext(load_config(data_path=data_dir), admin_key=ADMIN_KEY, device=dev)
+        server = RestServer(ctx)
+        client = RestClient(server.port)
+        client.login()
+        coll = ctx.get_collection("spill")
+        loaded_host = coll.dense.index.store.codes_on_host
+        if not pinned:
+            coll.flush_indexes()  # promotes the codes: the device scan (K1) serves again
+        reset_counts()
+        r_ids, r_scores, dt, _ = batch_search(client, "spill", qr, 1)
+        k1 = u8_scan.u8_bin_max.launches
+        launches += k1
+        same_ids = bool((r_ids == seq[0]).all())
+        max_diff = float(np.abs(r_scores - seq[1]).max())
+        line = (f"restart with the budget {'pinned' if pinned else 'lifted'}: codes loaded on the host {loaded_host}, "
+                f"on the host after {'the load' if pinned else 'flush'} {coll.dense.index.store.codes_on_host}; ids "
+                f"identical {same_ids}, scores identical {max_diff == 0.0} (max diff {max_diff:.3g}); K1 launches "
+                f"{k1}")
+        if pinned:
+            from cosdata_tpu_torch.grpc_api import vector_service_pb2 as pb
+
+            g_ids, _ = grpc_find(ctx, [pb.FindSimilarVectorsRequest(
+                collection_id="spill", dense=pb.FindSimilarDenseVectorsQuery(vector=v.tolist(), top_k=10),
+            ) for v in qr[:8]])
+            same_grpc = g_ids == r_ids[:8].tolist()
+            line += f"; gRPC FindSimilarVectors x8 equal to REST {same_grpc}"
+        print(line + f" [{card}]", flush=True)
+        client.close()
+        server.close()
+        ctx.close()
+        coll.dense.index.store.close()
+        if not loaded_host or coll.dense.index.store.codes_on_host != pinned or not same_ids or max_diff > 1e-6:
+            fail("a restart of the spilled collection answered differently")
+        if pinned and not same_grpc:
+            fail("gRPC answered differently from REST on the spilled collection")
+        if k1 == 0:
+            fail("the restarted spilled collection never launched K1")
+    return launches
+
+
 def launches_per_batch(kernels, search) -> list[int]:
     """The launches of each of ``kernels`` in one b1024 search of the main path."""
     reset_counts()
@@ -1655,6 +2025,20 @@ def main() -> None:
 
     phase(f"18 HNSW graph at {N} x {DIM}")
     k2_launches += graph_phase(u8_handle, q4_handle, x, q, truth, dev, card)
+    del u8_handle, q4_handle, ctx  # phase 11's context still held both handles
+    torch.cuda.empty_cache()
+
+    phase(f"19 beyond the device budget at {N} x {DIM}")
+    spilled = spill_u8_phase(x, q, truth, dev, card)
+    spilled["launches"] += beyond_hbm_section(x, q, dev, card)
+    k2_spill, unpack_spill, k2_streamed, unpack_streamed = spill_q4_phase(x, q, truth, dev, card)
+    x_rest = np.round(x[:N_REST].cpu().numpy().astype(np.float64), 6)  # phase 9's rows
+    with tempfile.TemporaryDirectory(prefix="cosdata_smoke_") as data_dir:
+        k1_spill_rest = spill_rest_phase(data_dir, x_rest, q_rest, dev, card)
+    del x_rest
+    launches += spilled["launches"] + k1_spill_rest
+    k2_launches += k2_spill
+    unpack_launches += unpack_spill
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
     print(card)
@@ -1670,6 +2054,7 @@ def main() -> None:
         "replaces": "cosdata_tpu/ops/pallas/u8_scan.py:69",
         "launches": launches,
         "launches_per_batch": k1_per_batch,
+        "streamed_launches_per_batch": spilled["per_batch"],
         "max_abs_err": max_err,
         **k1_timed[1024],
         "b128": k1_timed[128],
@@ -1680,6 +2065,7 @@ def main() -> None:
         "replaces": "cosdata_tpu/ops/pallas/subbyte_scan.py:55",
         "launches": k2_launches,
         "launches_per_batch": k2_per_batch,
+        "streamed_launches_per_batch": k2_streamed,
         "max_abs_err": k2_err,
         **k2_timed,
     }, {
@@ -1689,6 +2075,7 @@ def main() -> None:
         "replaces": "cosdata_tpu/ops/pallas/subbyte_scan.py:99",
         "launches": unpack_launches,
         "launches_per_batch": unpack_per_batch,
+        "streamed_launches_per_batch": unpack_streamed,
         "max_abs_err": unpack_err,
         **unpack_timed,
     }]}))

@@ -13,7 +13,10 @@ sub-byte (binary, quaternary, octal), f16 and f32 storage with cosine or
 dot are ported, and the HNSW graph serves unfiltered searches above
 ``flat_serve_threshold`` and permissive filters above the serving limits,
 as in the reference. Every tensor lives on the ``device`` the collection
-was given.
+was given, apart from the spill tiers: ``raw_storage`` "host" or "disk"
+keeps the raw rows on the host, and codes that outgrow the device budget
+spill there too (``ops/storage.py``); ``flush`` moves them back once they
+fit.
 """
 
 from __future__ import annotations
@@ -108,13 +111,11 @@ class DenseIndexHandle:
             "hnsw_params": hnsw_params or {},
             "raw_storage": raw_storage,
         }
+        #: where the raw rows live: the device, host RAM, a memory-mapped
+        #: file, or nowhere (codes only)
         if raw_storage not in ("device", "host", "disk", "none"):
             raise ValueError(f"unknown raw_storage {raw_storage}")
-        if raw_storage in ("host", "disk"):
-            raise NotImplementedError(
-                f"raw_storage={raw_storage!r} is not ported yet (ROADMAP queue 1: spill tiers)"
-            )
-        self.keep_raw = raw_storage == "device"
+        self.keep_raw = {"device": True, "host": "host", "disk": "disk", "none": False}[raw_storage]
         self.dimension = dimension
         key = str(distance_metric).lower().replace("_", "")
         if key not in _METRIC_ALIAS:
@@ -245,6 +246,10 @@ class DenseIndexHandle:
     def flush(self):
         self.finalize_sampling()
         self.maybe_compact()
+        if self.index is not None:
+            # spilled codes go back to the device once the budget fits
+            # (the compaction may have shrunk the store)
+            self.index.maybe_promote()
 
     #: tombstone fraction that triggers a rebuild at flush time
     COMPACT_THRESHOLD = 0.25
@@ -268,6 +273,7 @@ class DenseIndexHandle:
         internals = [iid for iid, _ in alive_items]
         rows = np.asarray([r for _, r in alive_items])
         raw = idx.store.raw_rows(rows)
+        idx.store.close()
         old_fields = {f: [lst[r] for r in rows] for f, lst in self.field_rows.items()}
         self._build(initial_capacity=len(internals))
         self.index.add(raw)

@@ -1,11 +1,12 @@
-"""Flat (brute-force) dense index (port of cosdata_tpu/indexes/flat.py,
-with device raw rows).
+"""Flat (brute-force) dense index (port of cosdata_tpu/indexes/flat.py).
 
 Stores at or above ``SCAN_THRESHOLD`` rows of capacity take an exact-scan
 engine of ops/flat_scan.py: u8 stores the codes engine (stage 2 is the
 u8_bin_max kernel), sub-byte and float stores the chunked scan (sub-byte
 code dots by kernel K2). Smaller stores score the whole store with one
-product and a top-k.
+product and a top-k. A store whose codes spilled to the host tier takes
+the streamed scan, and raw rows on the host or on disk rerank the
+shortlist there (``VectorStore.rerank_host_topk``).
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from cosdata_tpu_torch.ops.flat_scan import (
     fused_flat_search,
     fused_flat_search_codes,
     fused_flat_search_codes_f16q,
+    streamed_flat_topk,
 )
 from cosdata_tpu_torch.ops.storage import VectorStore, as_rows
 from cosdata_tpu_torch.ops.topk import NEG_INF, topk
@@ -46,7 +48,7 @@ class FlatIndex:
         kind: str = "u8",
         resolution: int = 2,
         range_: tuple[float, float] = (-1.0, 1.0),
-        keep_raw: bool = True,
+        keep_raw: bool | str = True,
         initial_capacity: int = 1024,
         raw_dtype: str = "f32",
     ):
@@ -86,14 +88,29 @@ class FlatIndex:
     def delete(self, internal_id: int) -> None:
         self.alive[int(internal_id)] = False
 
+    def maybe_promote(self) -> bool:
+        """Move spilled codes back to the device when the budget fits
+        (``VectorStore.maybe_promote_codes``); the scan takes K1 again."""
+        return self.store.maybe_promote_codes()
+
     def _mask(self) -> torch.Tensor:
-        """valid & alive (the reference caches it against remote-link round
-        trips; on a local device it is one cheap elementwise op)."""
+        """valid & alive on the device, for the resident and the streamed
+        scan alike (the reference caches it, and a host copy for the
+        streamed scan, against remote-link round trips; on a local device
+        it is one cheap elementwise op)."""
         return self.store.valid_mask() & self.alive
 
     def search(
         self, queries, top_k: int = 10, rerank: bool = False, rerank_factor: int = 5
     ) -> tuple[np.ndarray, np.ndarray]:
+        store = self.store
+        if rerank and store.raw_on_host:
+            # the quantized shortlist from the device, reranked against the
+            # host or disk raw rows
+            queries = as_rows(queries, store.device)
+            fetch = max(min(top_k * rerank_factor, max(store.capacity, 1)), top_k)
+            ids, _ = self.search_device(queries, fetch, rerank=False)
+            return store.rerank_host_topk(queries, ids.cpu().numpy().astype(np.int64), top_k)
         ids, vals = self.search_device(queries, top_k, rerank, rerank_factor)
         return ids.cpu().numpy().astype(np.int64), vals.cpu().numpy()
 
@@ -110,7 +127,11 @@ class FlatIndex:
                 torch.full((b, top_k), -np.inf, dtype=torch.float32, device=store.device),
             )
         k_fetch = min(top_k * rerank_factor if rerank else top_k, store.capacity)
-        do_rerank = bool(rerank and store.keep_raw)
+        if store.codes_on_host:
+            # no rerank stage here (host raw rows rerank in search())
+            top_s, top_i = streamed_flat_topk(store.metric, store, queries, k_fetch, self._mask())
+            return top_i[:, :top_k], top_s[:, :top_k]
+        do_rerank = bool(rerank and store.keep_raw is True)
         if store.capacity >= self.SCAN_THRESHOLD:
             if store.capacity % self.SCAN_CHUNK:
                 store.grow_to(-(-store.capacity // self.SCAN_CHUNK) * self.SCAN_CHUNK)

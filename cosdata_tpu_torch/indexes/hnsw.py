@@ -19,13 +19,20 @@ cosdata_tpu/indexes/hnsw.py).
 - An index loaded from a snapshot without a graph is ``scan_only``: it
   takes rows without building a graph and every search takes the exact
   scan (:meth:`search_brute`), as the reference's scan-only index does.
+- The spill tier: when growth passes the device budget the store spills
+  its codes to the host, and the index turns ``scan_only``, frees its
+  graph and keeps its tombstones in a host mirror (``_alive_host``);
+  searches stream the codes through the scan (:meth:`_search_streamed`).
+  :meth:`force_spill` spills on demand, with ``keep_graph=True`` keeping
+  the level-0 adjacency (``graph_on_spill``), which serves graph searches
+  by beam waves that gather their candidates' rows on the host
+  (:meth:`_search_graph_hostcodes`). :meth:`maybe_promote` moves the codes
+  back once they fit. Raw rows on the host or on disk rerank there.
 
-Not ported: the spill tier's graph code (``force_spill``,
-``maybe_promote``, the streamed scan and the host-codes graph search,
-ROADMAP queue 1: spill tiers), the per-level compiled split programs, the
-cache of small search constants, the power-of-two batch padding (the
-visited set is still chosen from the padded batch size, as the
-reference chooses it) and the build log; ``last_build_stats`` stays.
+Not ported: the per-level compiled split programs, the cache of small
+search constants, the power-of-two batch padding (the visited set is
+still chosen from the padded batch size, as the reference chooses it)
+and the build log; ``last_build_stats`` stays.
 """
 
 from __future__ import annotations
@@ -38,12 +45,15 @@ import torch
 
 from cosdata_tpu_torch.indexes.flat import GROUP, k_bins_for
 from cosdata_tpu_torch.ops import hnsw_kernels as HK
-from cosdata_tpu_torch.ops.flat_scan import fused_flat_search, fused_flat_search_codes, flat_scan_topk
+from cosdata_tpu_torch.ops.flat_scan import (
+    flat_scan_topk,
+    fused_flat_search,
+    fused_flat_search_codes,
+    streamed_flat_topk,
+)
 from cosdata_tpu_torch.ops.storage import VectorStore, as_rows, gather_queries, quantize_batch, rerank
 from cosdata_tpu_torch.ops.topk import NEG_INF, lax_top_k, topk, unique_mask_ids
 from cosdata_tpu_torch.store.chunked import DirtyTracker
-
-_SPILL = "spilled HNSW indexes are not ported yet (ROADMAP queue 1: spill tiers)"
 
 
 def _next_pow2(v: int) -> int:
@@ -87,6 +97,13 @@ def _rp_split_body(seg, vals, valid, n_segs: int):
     thresh = (torch.cumsum(hist, 1) >= half[:, None]).to(torch.uint8).argmax(1)
     side = b > thresh[torch.clamp_max(seg.long(), n_segs - 1)]
     return torch.where(valid, seg * 2 + side.to(seg.dtype), 0)
+
+
+def _empty_result(queries, top_k: int) -> tuple[np.ndarray, np.ndarray]:
+    """The answer of an empty index: -1 ids, -inf scores."""
+    x = queries if torch.is_tensor(queries) else np.asarray(queries)
+    b = 1 if x.ndim == 1 else x.shape[0]
+    return np.full((b, top_k), -1, np.int64), np.full((b, top_k), -np.inf, np.float32)
 
 
 def _merge_candidates(cand_ids, cand_scores, wave_row_scores, wave_ids, level_ok, c: int):
@@ -232,7 +249,7 @@ class HNSWIndex:
         resolution: int = 2,
         range_: tuple[float, float] = (-1.0, 1.0),
         params: HNSWParams | None = None,
-        keep_raw: bool = True,
+        keep_raw: bool | str = True,
         seed: int = 0,
         initial_capacity: int = 1024,
     ):
@@ -266,9 +283,17 @@ class HNSWIndex:
         self.tracker = DirtyTracker()
         #: set by bulk_build: {"ingest_s", "graph_s"} of the last build
         self.last_build_stats: dict | None = None
-        #: the index holds no graph (loaded from a scan-only snapshot): rows
-        #: are appended without graph work and every search takes the scan
+        #: the index holds no graph (loaded from a scan-only snapshot, or its
+        #: codes spilled): rows are appended without graph work and every
+        #: search takes the scan
         self.scan_only = False
+        #: the codes spilled with the level-0 adjacency kept (force_spill)
+        self.graph_on_spill = False
+        #: tombstones on the host while the codes are spilled (the device
+        #: ``alive`` is then a (1,) placeholder)
+        self._alive_host: np.ndarray | None = None
+        #: {"waves", "rows", "bytes"} uploaded by the last host-codes search
+        self.last_hostcodes_stats: dict | None = None
 
     @classmethod
     def from_arrays(cls, arrays: dict, *, metric: str, device, params: HNSWParams | None = None,
@@ -280,7 +305,7 @@ class HNSWIndex:
         and ``alive``."""
         store = VectorStore.from_arrays(arrays, metric=metric, device=device)
         idx = cls(store.dim, device, metric=metric, kind=store.kind, resolution=store.resolution,
-                  range_=store.range, params=params, keep_raw=store.keep_raw, seed=seed, initial_capacity=1)
+                  range_=store.range, params=params, keep_raw=False, seed=seed, initial_capacity=1)
         idx.store = store
         idx.adopt_graph(arrays)
         return idx
@@ -324,13 +349,20 @@ class HNSWIndex:
 
     def _sync_capacity(self) -> None:
         """Pad the per-row graph state to the store's capacity (a scan-only
-        index keeps no adjacency)."""
+        index keeps no adjacency); a store that spilled its codes turns the
+        index scan-only first."""
         cap = self.store.capacity
         pad = torch.nn.functional.pad
-        if self.alive.shape[0] < cap:
-            self.alive = pad(self.alive, (0, cap - self.alive.shape[0]), value=True)
-        if self.up_slot.shape[0] < cap:
-            self.up_slot = pad(self.up_slot, (0, cap - self.up_slot.shape[0]), value=-1)
+        if self.store.codes_on_host and not self.graph_on_spill:
+            self._maybe_spill_to_scan_only()
+        if self._alive_host is not None:
+            if len(self._alive_host) < cap:
+                self._alive_host = np.pad(self._alive_host, (0, cap - len(self._alive_host)), constant_values=True)
+        else:
+            if self.alive.shape[0] < cap:
+                self.alive = pad(self.alive, (0, cap - self.alive.shape[0]), value=True)
+            if self.up_slot.shape[0] < cap:
+                self.up_slot = pad(self.up_slot, (0, cap - self.up_slot.shape[0]), value=-1)
         if len(self.up_slot_host) < cap:
             self.up_slot_host = np.pad(self.up_slot_host, (0, cap - len(self.up_slot_host)), constant_values=-1)
         if len(self.levels) < cap:
@@ -391,17 +423,69 @@ class HNSWIndex:
         least BULK_THRESHOLD rows takes :meth:`bulk_build`; otherwise
         insertion waves of ``wave_size`` rows."""
         x = as_rows(x, self.store.device)
+        if self.graph_on_spill:
+            # the kept graph is read-only (its edge scores and upper levels
+            # were freed): ingest turns the index scan-only
+            self.graph_on_spill = False
+            self._drop_graph()
         if self.scan_only:
-            ids = self.store.add(x)
-            self._sync_capacity()
-            self.level_counts[0] += len(ids)
-            if self.entry < 0 and len(ids):
-                self.entry, self.entry_level = int(ids[0]), 0
-            return ids
+            return self._add_rows(x)
         if self.n == 0 and len(x) >= self.BULK_THRESHOLD:
             return self.bulk_build(x)
-        out = [self._add_wave(x[i : i + self.params.wave_size]) for i in range(0, len(x), self.params.wave_size)]
+        out = []
+        for i in range(0, len(x), self.params.wave_size):
+            out.append(self._add_wave(x[i : i + self.params.wave_size]))
+            if self.scan_only:
+                # the store spilled mid-add: the rest goes in without graph work
+                rest = x[i + self.params.wave_size :]
+                if len(rest):
+                    out.append(self._add_rows(rest))
+                break
         return np.concatenate(out) if out else np.empty((0,), np.int64)
+
+    def _add_rows(self, x) -> np.ndarray:
+        """Append rows to a scan-only index (no graph work)."""
+        ids = self.store.add(x)
+        self._sync_capacity()
+        self._count_scan_rows(ids)
+        return ids
+
+    def _count_scan_rows(self, ids: np.ndarray) -> None:
+        self.level_counts[0] += len(ids)
+        if self.entry < 0 and len(ids):
+            self.entry, self.entry_level = int(ids[0]), 0
+
+    def _drop_graph(self, keep_adj0: bool = False) -> None:
+        """Free the graph (placeholders of one row stay) and turn
+        scan-only; ``keep_adj0`` keeps the level-0 ids for the host-codes
+        beam and leaves the index a graph index."""
+        p = self.params
+        dev = self.store.device
+        self.scan_only = not keep_adj0
+        if not keep_adj0:
+            self.adj0 = torch.full((1, p.level_0_neighbors_count), -1, dtype=torch.int32, device=dev)
+        self.adj0_d = torch.full((1, p.level_0_neighbors_count), NEG_INF, dtype=torch.float32, device=dev)
+        self.up_adj = torch.full((1, p.num_layers, p.neighbors_count), -1, dtype=torch.int32, device=dev)
+        self.up_d = torch.full((1, p.num_layers, p.neighbors_count), NEG_INF, dtype=torch.float32, device=dev)
+        self.up_slot = torch.full((1,), -1, dtype=torch.int32, device=dev)
+        self.cap_up = 1
+
+    def _alive_to_host(self) -> None:
+        """Move the tombstones to the host mirror (the device copy becomes a
+        (1,) placeholder)."""
+        self._alive_host = self.alive.cpu().numpy().copy()
+        self.alive = torch.ones((1,), dtype=torch.bool, device=self.store.device)
+
+    def _maybe_spill_to_scan_only(self) -> None:
+        """Once the store has spilled its codes (growth past the budget, or
+        force_spill): serve by the streamed exact scan, with the tombstones
+        on the host and the graph freed."""
+        if not self.store.codes_on_host:
+            return
+        if self._alive_host is None:
+            self._alive_to_host()
+        if not self.scan_only:
+            self._drop_graph()
 
     def bulk_build(self, x) -> np.ndarray:
         """Build the whole graph of an empty index from k-nearest-neighbor
@@ -415,6 +499,11 @@ class HNSWIndex:
         ids = self.store.add(as_rows(x, self.store.device))
         self._sync_capacity()
         ingest_s = time.time() - t0
+        if self.scan_only:
+            # the ingest spilled the codes: serve by the scan
+            self._count_scan_rows(ids)
+            self.last_build_stats = {"ingest_s": round(ingest_s, 1), "graph_s": 0.0}
+            return ids
         t_graph0 = time.time()
         n = len(ids)
         lv = self._assign_levels(ids)
@@ -458,10 +547,23 @@ class HNSWIndex:
         dev = store.device
         contiguous = bool(n_mem and members[0] == 0 and members[-1] == n_mem - 1 and n_mem == store.n)
         sel = slice(0, n_mem) if contiguous else torch.as_tensor(members, device=dev)
-        if store.keep_raw:
-            base = store.raw
-        elif store.kind == "u8":
-            base = store.arrays.data
+        if dev.type == "cuda":
+            torch.backends.cuda.matmul.allow_tf32 = False
+        rot_dev = torch.as_tensor(rot, device=dev)
+        if store.keep_raw is True:
+            proj = store.raw[sel].to(torch.float32) @ rot_dev
+        elif store.kind == "u8" and not store.codes_on_host:
+            # the device codes, not host raw rows: an affine quantization
+            # of the same geometry, projected where they live
+            proj = store.arrays.data[sel].to(torch.float32) @ rot_dev
+        elif store.raw_on_host:
+            # host raw rows: uploaded in pieces and projected on the device
+            step = 1 << 17
+            proj = torch.cat([
+                store.upload_rows([store.raw_host], torch.as_tensor(members[s : s + step], dtype=torch.int64))[0]
+                @ rot_dev
+                for s in range(0, n_mem, step)
+            ])
         else:
             # sub-byte without raw rows: a random balanced partition
             perm = rng.permutation(n_mem)
@@ -472,9 +574,6 @@ class HNSWIndex:
                 part = perm[i::num_leaves]
                 out[i, : len(part)] = members[part]
             return out.astype(np.int32)
-        if dev.type == "cuda":
-            torch.backends.cuda.matmul.allow_tf32 = False
-        proj = base[sel].to(torch.float32) @ torch.as_tensor(rot, device=dev)
         mp = self._bucket(n_mem, 1024)
         vals_all = torch.nn.functional.pad(proj, (0, 0, 0, mp - n_mem))
         valid = torch.arange(mp, device=dev) < n_mem
@@ -677,6 +776,10 @@ class HNSWIndex:
         n0 = store.n
         ids = store.add(x)
         self._sync_capacity()
+        if self.scan_only:
+            # this wave's growth spilled the codes
+            self._count_scan_rows(ids)
+            return ids
         w = len(ids)
         pad_ids = self._pad_wave(ids)
         wp = len(pad_ids)
@@ -718,7 +821,7 @@ class HNSWIndex:
         """One refinement pass: re-search every node's candidates against
         the finished graph and rebuild its forward edges (back edges merged
         keep-m-closest)."""
-        if self.scan_only:
+        if self.scan_only or self.graph_on_spill:
             return
         p = self.params
         store = self.store
@@ -803,14 +906,26 @@ class HNSWIndex:
         self, queries, top_k: int = 10, ef: int | None = None, rerank: bool = True, rerank_keep: int | None = None
     ) -> tuple[np.ndarray, np.ndarray]:
         """Batched ANN search. Returns host (ids (B, k), scores (B, k)); id -1 pads."""
+        if self.store.codes_on_host and self.graph_on_spill:
+            return self._search_graph_hostcodes(queries, top_k, ef, rerank)
         if self.scan_only:
             return self.search_brute(queries, top_k, rerank=rerank)
-        out = self.search_device(queries, top_k, ef, rerank, rerank_keep)
+        host_rerank = rerank and self.store.raw_on_host
+        if host_rerank:
+            # the device returns the whole shortlist in quantized order; the
+            # exact rerank runs against the host raw rows
+            ef_eff = max(int(ef or self.params.ef_search), top_k)
+            keep = min(max(rerank_keep or 5 * top_k, top_k), ef_eff)
+            out = self.search_device(queries, keep, ef, rerank=False, rerank_keep=keep)
+        else:
+            out = self.search_device(queries, top_k, ef, rerank, rerank_keep)
         if out is None:
-            b = as_rows(queries, "cpu").shape[0]
-            return np.full((b, top_k), -1, np.int64), np.full((b, top_k), -np.inf, np.float32)
+            return _empty_result(queries, top_k)
         ids, scores = out
-        return ids.cpu().numpy().astype(np.int64), scores.cpu().numpy()
+        ids = ids.cpu().numpy().astype(np.int64)
+        if host_rerank:
+            return self.store.rerank_host_topk(queries, ids, top_k)
+        return ids, scores.cpu().numpy()
 
     def search_device(
         self, queries, top_k: int = 10, ef: int | None = None, rerank: bool = True, rerank_keep: int | None = None
@@ -829,7 +944,7 @@ class HNSWIndex:
         expand = max(p.expand, ef // 64)
         vcap = max(p.visited_cap, 512 * expand)
         keep = min(max(rerank_keep or 5 * top_k, top_k), ef)
-        do_rerank = bool(rerank and store.keep_raw)
+        do_rerank = bool(rerank and store.keep_raw is True)
         return _fused_search(
             store.metric, self._kind(), store.dim_pad, store.dim, store.resolution, ef, p.ef_upper, expand, vcap,
             p.max_iters, keep, top_k, do_rerank, store.range[0], store.range[1], store.ship_queries(queries),
@@ -841,7 +956,10 @@ class HNSWIndex:
         )
 
     def delete(self, internal_id: int) -> None:
-        self.alive[int(internal_id)] = False
+        if self._alive_host is not None:
+            self._alive_host[int(internal_id)] = False
+        else:
+            self.alive[int(internal_id)] = False
         self.n_deleted += 1
 
     def _rerank_factor(self) -> int:
@@ -852,25 +970,172 @@ class HNSWIndex:
             return 20
         return 5
 
-    def force_spill(self, keep_graph: bool = False) -> None:
-        raise NotImplementedError(_SPILL)
-
-    def maybe_promote(self) -> bool:
-        raise NotImplementedError(_SPILL)
-
     def search_brute(
         self, queries, top_k: int = 10, mask: np.ndarray | None = None, rerank: bool = True
     ) -> tuple[np.ndarray, np.ndarray]:
-        """Exact masked scan + exact rerank; host (ids, scores), -1 padded."""
-        out = self.search_brute_device(queries, top_k, mask, rerank)
+        """Exact masked scan + exact rerank; host (ids, scores), -1 padded.
+        Spilled codes take the streamed scan; host or disk raw rows rerank
+        a deeper shortlist on the host side."""
+        if self.store.codes_on_host:
+            return self._search_streamed(queries, top_k, mask, rerank)
+        host_rerank = rerank and self.store.raw_on_host
+        fetch = self._host_fetch(top_k) if host_rerank else top_k
+        out = self.search_brute_device(queries, fetch, mask, rerank)
         if out is None:
-            b = as_rows(queries, "cpu").shape[0]
-            return (
-                np.full((b, top_k), -1, np.int64),
-                np.full((b, top_k), -np.inf, np.float32),
-            )
+            return _empty_result(queries, top_k)
         ids, vals = out
-        return ids.cpu().numpy().astype(np.int64), vals.cpu().numpy()
+        ids = ids.cpu().numpy().astype(np.int64)
+        if host_rerank:
+            return self.store.rerank_host_topk(queries, ids, top_k)
+        return ids, vals.cpu().numpy()
+
+    def _host_fetch(self, top_k: int) -> int:
+        """Shortlist depth for a host rerank: never fewer than top_k columns
+        (the scan pads with -1 past n), else the coarse-code ladder's."""
+        return max(min(self._rerank_factor() * top_k, max(self.n, 1)), top_k)
+
+    def _search_streamed(self, queries, top_k: int, mask: np.ndarray | None, rerank: bool):
+        """The exact scan of spilled codes (``streamed_flat_topk``), reranked
+        against the host raw rows when there are any."""
+        store = self.store
+        queries = as_rows(queries, store.device)
+        if self.n == 0:
+            return _empty_result(queries, top_k)
+        valid = np.zeros(store.capacity, bool)
+        valid[: self.n] = True
+        if self._alive_host is not None:
+            valid &= self._alive_host[: store.capacity]
+        if mask is not None:
+            m = np.zeros(store.capacity, bool)
+            m[: len(mask)] = mask
+            valid &= m
+        host_rerank = rerank and store.raw_on_host
+        fetch = self._host_fetch(top_k) if host_rerank else top_k
+        top_s, top_i = streamed_flat_topk(
+            store.metric, store, queries, fetch, torch.from_numpy(valid).to(store.device)
+        )
+        ids, vals = top_i.cpu().numpy().astype(np.int64), top_s.cpu().numpy()
+        if host_rerank:
+            return store.rerank_host_topk(queries, ids, top_k)
+        return ids[:, :top_k], vals[:, :top_k]
+
+    def force_spill(self, keep_graph: bool = False) -> None:
+        """Move the codes to the host tier on demand (growth past the budget
+        spills by itself). ``keep_graph=True`` keeps a u8 graph's level-0
+        adjacency on the device and serves graph searches by host-gathered
+        beam waves (:meth:`_search_graph_hostcodes`); the edge scores and
+        upper levels are freed, and a later ``add`` turns the index
+        scan-only. Otherwise the index turns scan-only at once."""
+        if self.store.codes_on_host:
+            return
+        if not self.store._spillable():
+            raise RuntimeError("store is not spillable (device-raw keeps rows in HBM)")
+        if not keep_graph or self.level_counts[0] == 0 or self.store.kind != "u8" or self.scan_only:
+            self.store._move_codes(host=True)
+            self._maybe_spill_to_scan_only()
+            return
+        self.store._move_codes(host=True)
+        self.graph_on_spill = True
+        self._alive_to_host()
+        self._drop_graph(keep_adj0=True)
+
+    #: beam entries expanded per wave by the host-codes engine: each wave
+    #: costs a host round trip, so fewer, wider waves
+    HOSTCODES_EXPAND = 8
+    #: random alive entry seeds, standing in for the freed upper levels
+    HOSTCODES_SEEDS = 32
+
+    def _host_rows_chunk(self, ids_mat: np.ndarray, alive: np.ndarray):
+        """The unique alive rows of an id matrix from the spilled codes, on
+        the device (gathered into the store's pinned staging buffer), and
+        each id's row in them (-1 for none). Returns (chunk, slots, rows)."""
+        store = self.store
+        a = store.arrays
+        flat = ids_mat.reshape(-1)
+        ok = flat >= 0
+        ok[ok] = alive[flat[ok]]
+        uniq, inv = np.unique(flat[ok], return_inverse=True)
+        # one row at least, so the clamped gather of dead slots stays in range
+        gather = torch.from_numpy(uniq if len(uniq) else np.zeros(1, np.int64))
+        data, sums, mags = store.upload_rows([a.data, a.sums, a.mags], gather)
+        slots = np.full(ids_mat.shape, -1, np.int64)
+        slots.reshape(-1)[ok] = inv
+        chunk = a._replace(data=data, sums=sums, mags=mags)
+        return chunk, torch.from_numpy(slots).to(store.device), len(uniq)
+
+    def _search_graph_hostcodes(self, queries, top_k: int, ef: int | None, rerank: bool):
+        """Graph search of a kept-graph spilled index: the level-0 adjacency
+        is on the device, the codes on the host. The beam starts from the
+        entry and HOSTCODES_SEEDS - 1 random alive rows (the reference's
+        generator and seed, so the seeds are the reference's); each wave
+        selects its fresh candidates on the device, downloads their ids,
+        gathers their unique rows on the host, uploads them and merges
+        their scores on the device. Reranks against the host raw rows."""
+        store = self.store
+        queries = as_rows(queries, store.device)
+        b = queries.shape[0]
+        if self.n == 0 or self.entry < 0:
+            return _empty_result(queries, top_k)
+        alive = self._alive_host
+        ef_eff = max(int(ef or self.params.ef_search), top_k)
+        q = store.ship_query_codes(queries)
+        rng = np.random.default_rng(0xC05DA7A)
+        cand = np.flatnonzero(alive[: self.n])
+        if not len(cand):
+            return _empty_result(queries, top_k)
+        n_seed = min(self.HOSTCODES_SEEDS - 1, len(cand))
+        seeds = rng.choice(cand, size=n_seed, replace=False)
+        start = np.full((b, n_seed + 1), -1, np.int64)
+        start[:, 0] = self.entry if alive[self.entry] else int(seeds[0])
+        start[:, 1:] = seeds[None, :]
+        chunk, slots, rows = self._host_rows_chunk(start, alive)
+        row_bytes = store.dim_pad + 8
+        stats = {"waves": 0, "rows": rows, "bytes": rows * row_bytes}
+        ids, scores, expanded, visited = HK.beam_hostcodes_init(
+            store.metric, store.dim_pad, ef_eff, -(-self.cap // 32), q, chunk, slots,
+            torch.from_numpy(start).to(store.device),
+        )
+        for _ in range(self.params.max_iters):
+            nbrs, expanded, visited, done = HK.beam_wave_select(
+                ids, scores, expanded, visited, self.adj0, self.HOSTCODES_EXPAND
+            )
+            if bool(done):
+                break
+            # the download syncs the stream, so the last wave's upload from
+            # the staging buffer is done before it is refilled
+            nbrs_np = nbrs.cpu().numpy()
+            chunk, slots, rows = self._host_rows_chunk(nbrs_np, alive)
+            stats["waves"] += 1
+            stats["rows"] += rows
+            stats["bytes"] += rows * row_bytes
+            ids, scores, expanded = HK.beam_wave_merge(
+                store.metric, store.dim_pad, q, chunk, slots, nbrs, ids, scores, expanded
+            )
+        self.last_hostcodes_stats = stats
+        sc = scores.cpu().numpy()
+        ids = np.where(sc > NEG_INF / 2, ids.cpu().numpy(), -1)
+        if rerank and store.raw_on_host:
+            keep = min(5 * top_k, ef_eff)
+            return store.rerank_host_topk(queries, ids[:, :keep], top_k)
+        return ids[:, :top_k], sc[:, :top_k]
+
+    def maybe_promote(self) -> bool:
+        """Move spilled codes back to the device once they fit (the store
+        decides). The tombstones return to the device; a kept graph lost its
+        edge scores and upper levels, so the index serves by the scan
+        (scan-only) until a compaction rebuilds it."""
+        if not self.store.codes_on_host or not self.store.maybe_promote_codes():
+            return False
+        if self._alive_host is not None:
+            alive = np.ones(self.store.capacity, bool)
+            alive[: len(self._alive_host)] = self._alive_host[: self.store.capacity]
+            self.alive = torch.from_numpy(alive).to(self.store.device)
+            self._alive_host = None
+        if self.graph_on_spill:
+            self.graph_on_spill = False
+            self._drop_graph()
+        self._sync_capacity()
+        return True
 
     def _valid(self, mask: np.ndarray | None) -> torch.Tensor:
         valid = self.store.valid_mask() & self.alive
@@ -891,7 +1156,7 @@ class HNSWIndex:
         queries = as_rows(queries, store.device)
         if self.n == 0:
             return None
-        do_rerank = bool(rerank and store.keep_raw)
+        do_rerank = bool(rerank and store.keep_raw is True)
         keep = min(self._rerank_factor() * top_k if do_rerank else top_k, self.cap)
         if self.cap >= self.SCAN_CHUNK:
             if self.cap % self.SCAN_CHUNK:

@@ -23,6 +23,11 @@ The codes engine's five stages:
 4. the winning bins expand as contiguous (G·D)-byte block rows of the code
    table and are rescored in u8 space, chunked over queries;
 5. the shortlist is reranked in exact f32 against the raw rows.
+
+A store whose codes spilled to the host tier takes
+:func:`streamed_flat_topk`: its codes stream to the device in
+``STREAM_CHUNK``-row chunks, each chunk scanned by K1 (u8: stages 2-4 on
+the chunk) or K2 (sub-byte) and merged into a running top-k.
 """
 
 from __future__ import annotations
@@ -80,11 +85,28 @@ def fused_flat_search_codes(
     k_bins = min(k_bins, capacity // group)
     bin_s, bin_ids = torch.topk(bins, k_bins, dim=1)
     del bins
-    live_bin = bin_s > NEG_INF / 2
-    # stage 4: contiguous block expansion + u8 rescore, chunked over queries
+    # stage 4: contiguous block expansion + u8 rescore
+    vals, ids = expand_bins(metric, d_pad, group, k_fetch, q, store, valid, bin_s, bin_ids)
+    if rerank:
+        # stage 5, fused: exact rerank with the exact (f16-rounded) queries
+        ids, vals = exact_rerank_sorted(metric, d_true, d_pad, k, q_re, raw, ids, vals)
+    else:
+        vals, ids = vals[:, :k], ids[:, :k]
+    ids = torch.where(vals > NEG_INF / 2, ids, -1)
+    return ids, vals
+
+
+def expand_bins(metric: str, d_pad: int, group: int, k_fetch: int, q: QuantizedU8, store: QuantizedU8,
+                valid: torch.Tensor, bin_s: torch.Tensor, bin_ids: torch.Tensor):
+    """Stage 4: the (B, k_bins) winning bins expand as contiguous (G·D)-byte
+    block rows of the code table, are rescored in u8 space (chunked over
+    queries) and cut to their top ``k_fetch``. Returns (vals, row ids); a
+    row of a sunk bin or an invalid row scores NEG_INF."""
+    b, k_bins = bin_ids.shape
+    cap_g = store.data.shape[0] // group
     p_total = k_bins * group
     kf = min(k_fetch, p_total)
-    cap_g = capacity // group
+    live_bin = bin_s > NEG_INF / 2
     data_blk = store.data.view(cap_g, group * d_pad)
     sums_blk = store.sums.view(cap_g, group)
     mags_blk = store.mags.view(cap_g, group)
@@ -105,13 +127,7 @@ def fused_flat_search_codes(
         sc = torch.where(live, sc, NEG_INF)
         rows = (sel[:, :, None] * group + offs).view(e - s, p_total)
         vals[s:e], ids[s:e] = _topk_take(sc, kf, rows)
-    if rerank:
-        # stage 5, fused: exact rerank with the exact (f16-rounded) queries
-        ids, vals = exact_rerank_sorted(metric, d_true, d_pad, k, q_re, raw, ids, vals)
-    else:
-        vals, ids = vals[:, :k], ids[:, :k]
-    ids = torch.where(vals > NEG_INF / 2, ids, -1)
-    return ids, vals
+    return vals, ids
 
 
 def fused_flat_search_codes_f16q(
@@ -224,3 +240,132 @@ def fused_flat_search(
         vals, ids = vals[:, :k], ids[:, :k]
     ids = torch.where(vals > NEG_INF / 2, ids, -1)
     return ids, vals
+
+
+#: rows per streamed chunk of a spilled store (x dim_pad bytes of u8 codes
+#: per copy)
+STREAM_CHUNK = 1 << 16
+#: rows per bin of K1 on a streamed chunk (one warp of the kernel)
+STREAM_GROUP = 32
+
+
+def _stream_chunks(store, stats: dict):
+    """Yield (base, rows, chunk) over a spilled store's host-tier codes, in
+    ``STREAM_CHUNK``-row slices up to its capacity; ``chunk`` is the slice
+    as a quantized batch on the store's device, carrying the device scalars.
+
+    On the CPU the slices are views. On CUDA two device buffers alternate:
+    the copies of chunk i+1 are queued on a side stream, from the pinned
+    host tier without blocking, before chunk i is handed out, so they
+    overlap chunk i's kernels. An event orders each buffer's copies before
+    the kernels that read it, and another its readers before its next fill;
+    the first two fills wait for the main stream's work up to the buffers'
+    allocation. ``stats["bytes"]`` counts the bytes moved."""
+    a, cap, kind = store.arrays, store.capacity, store.kind
+    bases = list(range(0, store.n, STREAM_CHUNK))
+
+    def span(base):
+        return base, min(base + STREAM_CHUNK, cap)
+
+    def nbytes(lo, hi):
+        row = (a.planes.shape[0] * a.planes.shape[2] * 4 if kind == "subbyte" else a.data.shape[1]) + 8
+        return (hi - lo) * row
+
+    if store.device.type != "cuda":
+        for base in bases:
+            lo, hi = span(base)
+            stats["bytes"] += nbytes(lo, hi)
+            yield base, hi - lo, _slice_store(a, kind, lo, hi - lo)
+        return
+    dev = store.device
+    rows_max = min(STREAM_CHUNK, cap)
+    bufs = [store._empty(rows_max) for _ in range(2)]
+    side = torch.cuda.Stream(device=dev)
+    main = torch.cuda.current_stream(dev)
+    ready = [torch.cuda.Event(), torch.cuda.Event()]
+    free = [torch.cuda.Event(), torch.cuda.Event()]
+
+    def fill(slot, base):
+        lo, hi = span(base)
+        buf = bufs[slot]
+        with torch.cuda.stream(side):
+            side.wait_event(free[slot])  # the kernels of this buffer's last chunk are done
+            if kind == "subbyte":
+                for p in range(a.planes.shape[0]):
+                    buf.planes[p, : hi - lo].copy_(a.planes[p, lo:hi], non_blocking=True)
+            else:
+                buf.data[: hi - lo].copy_(a.data[lo:hi], non_blocking=True)
+            buf.sums[: hi - lo].copy_(a.sums[lo:hi], non_blocking=True)
+            buf.mags[: hi - lo].copy_(a.mags[lo:hi], non_blocking=True)
+            ready[slot].record(side)
+        stats["bytes"] += nbytes(lo, hi)
+
+    # the buffers were allocated (and filled empty) on the main stream, and
+    # their blocks may have been read there by earlier kernels: the first
+    # copies wait for all of it (``free`` has no record yet)
+    side.wait_stream(main)
+    try:
+        fill(0, bases[0])
+        for i, base in enumerate(bases):
+            slot = i % 2
+            if i + 1 < len(bases):
+                fill(1 - slot, bases[i + 1])
+            main.wait_event(ready[slot])
+            lo, hi = span(base)
+            yield base, hi - lo, _slice_store(bufs[slot], kind, 0, hi - lo)
+            free[slot].record(main)
+    finally:
+        # a scan left early must not free the buffers under a copy in flight
+        main.wait_stream(side)
+
+
+def streamed_flat_topk(metric: str, store, queries, k_fetch: int, valid: torch.Tensor):
+    """Exact scan of a store whose codes spilled to the host tier (port of
+    the reference's ``streamed_flat_topk``): the codes stream to the device
+    chunk by chunk (:func:`_stream_chunks`) into a running (B, k) top-k,
+    k = min(k_fetch, capacity).
+
+    - u8 chunks run K1 over the chunk (contiguous ``STREAM_GROUP``-row
+      bins), an exact top-k of its bins, and the expansion and u8 rescore
+      of their rows while the chunk is on the device (the reference's
+      ``_streamed_chunk_merge_codes``): each of the chunk's top-k rows
+      bounds its own bin's maximum, so at most k-1 bins outrank it and the
+      chunk's top-k survives the bin cut; the answers are the plain merge's.
+    - sub-byte chunks run K2 against the query codes, unpacked once per batch.
+
+    ``valid`` is a (capacity,) bool tensor on the device (rows, tombstones
+    and filters). Returns device (scores (B, k), ids (B, k)), ids -1 where
+    nothing was found; ``streamed_flat_topk.last_stats`` holds the last
+    call's chunks and bytes moved."""
+    kind, d_pad = store.kind, store.dim_pad
+    if kind == "u8":
+        q, q_codes = store.ship_query_codes(queries), None
+    else:
+        q = store.quantize_queries(queries)
+        q_codes = unpack_query_codes(q.planes)
+    b = q.mags.shape[0]
+    k = min(k_fetch, store.capacity)
+    top_s = torch.full((b, k), NEG_INF, dtype=torch.float32, device=store.device)
+    top_i = torch.full((b, k), -1, dtype=torch.int64, device=store.device)
+    stats = {"chunks": 0, "bytes": 0}
+    for base, rows, chunk in _stream_chunks(store, stats):
+        valid_c = valid[base : base + rows]
+        if kind == "u8":
+            bins = u8_bin_max_from_store(metric, STREAM_GROUP, q, chunk, valid_c, d_pad)
+            bin_s, bin_ids = torch.topk(bins, min(k, rows // STREAM_GROUP), dim=1)
+            del bins
+            c_s, c_i = expand_bins(metric, d_pad, STREAM_GROUP, k, q, chunk, valid_c, bin_s, bin_ids)
+        else:
+            # sub-byte scores tie often: equal scores keep the lower row, as
+            # the reference's selections do, so both keep the same shortlist
+            scores = D.score(metric, kind, q, chunk, d_pad, q_codes)
+            c_s, c_i = lax_top_k(torch.where(valid_c[None, :], scores, NEG_INF), min(k, rows))
+            del scores
+        top_s, pos = lax_top_k(torch.cat([top_s, c_s], dim=1), k)
+        top_i = torch.gather(torch.cat([top_i, c_i + base], dim=1), 1, pos)
+        stats["chunks"] += 1
+    streamed_flat_topk.last_stats = stats
+    return top_s, torch.where(top_s > NEG_INF / 2, top_i, -1)
+
+
+streamed_flat_topk.last_stats = {"chunks": 0, "bytes": 0}

@@ -28,8 +28,12 @@ write the last row). All code products are exact (``ops/distance.py``);
 the reference's grouped GEMMs exist only to reach the TPU's matrix unit.
 Euclidean scoring is not ported.
 
-The spill tier's graph engine (``beam_wave_select``, ``beam_wave_merge``,
-``beam_hostcodes_init``) raises ``NotImplementedError``.
+The spill tier's graph engine splits a beam wave in two around the host:
+``beam_wave_select`` picks the wave's fresh candidate ids on the device,
+the host gathers their code rows from the spilled tier and uploads the
+unique ones, and ``beam_wave_merge`` scores them through ``slots`` and
+merges them into the beam; ``beam_hostcodes_init`` builds the first beam
+and its visited bit table.
 """
 
 from __future__ import annotations
@@ -42,7 +46,6 @@ from cosdata_tpu_torch.ops import distance as D
 from cosdata_tpu_torch.ops.storage import gather_queries, score_table, scores_gathered, take_rows, word_major_rows
 from cosdata_tpu_torch.ops.topk import NEG_INF, lax_top_k, unique_mask_ids
 
-_SPILL = "the spill tier's graph engine is not ported yet (ROADMAP queue 1: spill tiers)"
 _EUCLIDEAN = "euclidean graph scoring is not ported yet (ROADMAP queue 1: euclidean and hamming stage 1)"
 
 #: beam waves between two host checks for an open frontier
@@ -166,16 +169,64 @@ def beam_search(
     return ids, scores
 
 
-def beam_wave_select(*_args, **_kwargs):
-    raise NotImplementedError(_SPILL)
+def _merge_beam(ids, scores, expanded, nids, nscores):
+    """The top-EF of the beam and the new (unexpanded) candidates."""
+    all_scores = torch.cat([scores, nscores], dim=1)
+    all_ids = torch.cat([ids, nids], dim=1)
+    all_exp = torch.cat([expanded, torch.zeros(nids.shape, dtype=torch.bool, device=nids.device)], dim=1)
+    top_scores, pos = lax_top_k(all_scores, ids.shape[1])
+    top_ids = torch.gather(all_ids, 1, pos)
+    return top_ids, top_scores, torch.gather(all_exp, 1, pos) | (top_ids < 0)
 
 
-def beam_wave_merge(*_args, **_kwargs):
-    raise NotImplementedError(_SPILL)
+def beam_wave_select(ids, scores, expanded, visited, adj_table, expand: int):
+    """One beam wave's device half for the host-codes graph engine: select
+    the top-``expand`` unexpanded entries, gather their level-0 adjacency
+    rows (row == node id), keep the wave-unique ids not yet visited and
+    mark them in the bit table (in place). Returns (fresh candidate ids
+    (B, expand·m), -1 elsewhere; expanded; visited; done, a 0-d bool that
+    is True when no entry was left to expand)."""
+    b, ef = ids.shape
+    e = min(expand, ef)
+    sel_scores = torch.where(expanded | (ids < 0), NEG_INF, scores)
+    sel_vals, sel_pos = lax_top_k(sel_scores, e)
+    expanded = expanded.scatter(1, sel_pos, True)
+    exp_ids = torch.where(sel_vals > NEG_INF / 2, torch.gather(ids, 1, sel_pos), -1)
+    nbrs = take_rows(adj_table, torch.clamp_min(exp_ids, 0)).long()
+    nbrs = torch.where(exp_ids[:, :, None] >= 0, nbrs, -1).reshape(b, e * adj_table.shape[1])
+    seen, word, bitv = _probe_bits(visited, nbrs)
+    fresh = unique_mask_ids(nbrs) & ~seen & (nbrs >= 0)
+    _mark_bits(visited, word, bitv, fresh)
+    done = ~((~expanded) & (ids >= 0)).any()
+    return torch.where(fresh, nbrs, -1), expanded, visited, done
 
 
-def beam_hostcodes_init(*_args, **_kwargs):
-    raise NotImplementedError(_SPILL)
+def beam_wave_merge(metric: str, d: int, q, chunk, slots, nbrs, ids, scores, expanded):
+    """Score a wave's candidates from ``chunk``, the QuantizedU8 of its
+    unique uploaded rows (``slots`` (B, K): each candidate's row in it, -1
+    for none), and merge them into the beam. Returns (ids, scores,
+    expanded)."""
+    nscores = torch.where(slots >= 0, scores_gathered(metric, "u8", d, q, chunk, torch.clamp_min(slots, 0)), NEG_INF)
+    return _merge_beam(ids, scores, expanded, torch.where(slots >= 0, nbrs, -1), nscores)
+
+
+def beam_hostcodes_init(metric: str, d: int, ef: int, bitmask_w: int, q, chunk, slots, start_ids):
+    """The host-codes engine's first beam: score the start ids (uploaded as
+    ``chunk``/``slots``), mark them in a fresh (B, ``bitmask_w``) bit table
+    and keep the top ``ef``. Returns (ids, scores, expanded, visited)."""
+    b, s = start_ids.shape
+    uniq = unique_mask_ids(start_ids)
+    sc = scores_gathered(metric, "u8", d, q, chunk, torch.clamp_min(slots, 0))
+    sc = torch.where(uniq & (slots >= 0), sc, NEG_INF)
+    visited = torch.zeros((b, bitmask_w), dtype=torch.int32, device=start_ids.device)
+    _, word, bitv = _probe_bits(visited, start_ids)
+    _mark_bits(visited, word, bitv, uniq & (start_ids >= 0))
+    if s < ef:
+        sc = torch.nn.functional.pad(sc, (0, ef - s), value=NEG_INF)
+        start_ids = torch.nn.functional.pad(start_ids, (0, ef - s), value=-1)
+    top_scores, pos = lax_top_k(sc, ef)
+    top_ids = torch.where(top_scores > NEG_INF / 2, torch.gather(start_ids, 1, pos), -1)
+    return top_ids, top_scores, top_ids < 0, visited
 
 
 def _topk_rows(all_ids, all_d, m):

@@ -13,13 +13,18 @@ other's snapshots:
   ``entry_level``, ``level_counts``), ``dense.npz`` (``levels``,
   ``alive``, ``mags``, ``sums``, ``up_slot``) and the chunked ``data``
   (u8 int8 / f16 / f32 rows), ``planes`` (sub-byte, uint32 words) and
-  ``raw`` arrays;
+  ``raw`` (device raw rows) or ``raw_host`` (host or disk raw rows) arrays;
+- a store whose codes spilled writes ``codes_on_host: true`` and loads
+  back into host tensors, never onto the device; ``raw_host`` loads into
+  host memory, or streams into a fresh memmap for a "disk" index;
 - the graph: the chunked ``adj0``, ``adj0_d`` (level 0, rows rewritten by
   the index tracker's ``adj0`` view) and ``up_adj``, ``up_d`` (the upper
   table, by its ``up`` view);
-- an index with no graph (loaded from a ``scan_only`` snapshot) writes
-  ``scan_only: true`` and no graph files, and is served by the exact scan
-  at any size;
+- an index with no graph (spilled, or loaded from a ``scan_only``
+  snapshot) writes ``scan_only: true`` and no graph files, and is served
+  by the exact scan at any size; so does a kept-graph spill, whose graph
+  is only half on the device (the reference writes that state with a (1,)
+  placeholder for its tombstones, which its loader serves as all alive);
 - the sparse index: ``sparse.npz`` (``alive``, ``has_doc``, ``raw_nnz``),
   the chunked host CSR (``sp_keys``, ``sp_ids``, ``sp_buckets``) and raw
   rows (``sp_raw_dims``, ``sp_raw_vals``), and ``sparse.msgpack`` written
@@ -29,8 +34,8 @@ other's snapshots:
   accounting, ``alive``/``has_doc`` and each term's postings); its device
   arrays are rebuilt from it at the first search.
 
-Not ported (each raises ``NotImplementedError`` naming its ROADMAP item):
-sharded dense snapshots and codes spilled to the host.
+Not ported (raises ``NotImplementedError`` naming its ROADMAP item):
+sharded dense snapshots.
 """
 
 from __future__ import annotations
@@ -44,7 +49,7 @@ import numpy as np
 import torch
 
 from cosdata_tpu_torch.ops.storage import VectorStore
-from cosdata_tpu_torch.store.chunked import adopt_tracker, load_chunked, save_chunked
+from cosdata_tpu_torch.store.chunked import adopt_tracker, chunked_exists, load_chunked, save_chunked
 
 #: the graph's chunked arrays
 _GRAPH_ARRAYS = ("adj0", "adj0_d", "up_adj", "up_d")
@@ -178,9 +183,12 @@ def _save_dense(idx, snap_dir: Path, configured_range: list) -> None:
     vs = idx.store
     a = vs.arrays
     st = vs.tracker.view("rows")
+    # a kept-graph spill keeps only the level-0 ids on the device: written
+    # as what it serves after a restart, a scan-only index
+    scan_only = idx.scan_only or idx.graph_on_spill
     # write order: chunked arrays and the npz first, the msgpack manifest
     # last (loaders key on the manifest)
-    if not idx.scan_only:
+    if not scan_only:
         save_chunked(snap_dir, "adj0", _HostChunks(idx.adj0, np.int32), idx.tracker.view("adj0"))
         save_chunked(snap_dir, "adj0_d", _HostChunks(idx.adj0_d, np.float32), idx.tracker.view("adj0"))
         save_chunked(snap_dir, "up_adj", _HostChunks(idx.up_adj, np.int32), idx.tracker.view("up"))
@@ -191,8 +199,11 @@ def _save_dense(idx, snap_dir: Path, configured_range: list) -> None:
         save_chunked(snap_dir, "data", _HostChunks(a.data, _NP_DTYPE[a.data.dtype]), st)
     if vs.raw is not None:
         save_chunked(snap_dir, "raw", _HostChunks(vs.raw, _NP_DTYPE[vs.raw.dtype]), st)
-    arrays = {"levels": idx.levels, "alive": _host(idx.alive), "mags": _host(a.mags)}
-    if not idx.scan_only:
+    elif vs.raw_host is not None:
+        save_chunked(snap_dir, "raw_host", _HostChunks(vs.raw_host, np.float32), st)
+    alive = idx._alive_host if idx._alive_host is not None else _host(idx.alive)
+    arrays = {"levels": idx.levels, "alive": alive, "mags": _host(a.mags)}
+    if not scan_only:
         arrays["up_slot"] = _host(idx.up_slot)
     if vs.kind in ("u8", "subbyte"):
         arrays["sums"] = _host(a.sums)
@@ -212,12 +223,12 @@ def _save_dense(idx, snap_dir: Path, configured_range: list) -> None:
         # rows arrive as exact f32 (the reference's wire format on a fast link)
         "ship_dtype": "f32",
         "capacity": int(vs.capacity),
-        "codes_on_host": False,
-        "scan_only": bool(idx.scan_only),
+        "codes_on_host": bool(vs.codes_on_host),
+        "scan_only": bool(scan_only),
         "raw_dtype": vs.raw_dtype,
     }
     _atomic_write(snap_dir / "dense.msgpack", msgpack.packb(meta))
-    if idx.scan_only:
+    if scan_only:
         # graph files of a snapshot this one replaced no longer describe
         # the store (removed only once the scan-only manifest is down)
         for name in _GRAPH_ARRAYS:
@@ -384,38 +395,38 @@ def _replay_map_log(coll, dense_rows, log_p: Path):
     return dense_rows
 
 
-def _load_store(snap_dir: Path, meta: dict, z, dim: int, device) -> VectorStore:
-    """The VectorStore a dense snapshot describes, on ``device``.
+def _load_store(snap_dir: Path, meta: dict, z, dim: int, device, keep_raw_mode) -> VectorStore:
+    """The VectorStore a dense snapshot describes, on ``device``; spilled
+    codes stay in host tensors, and host raw rows go to the host, or to a
+    fresh memmap when the index's ``keep_raw_mode`` is "disk".
 
     ``ship_dtype`` (the wire format the reference ingested the rows with)
     is not needed: the loaded codes serve as they are, and the port
     quantizes new rows from exact f32 on the device, as the reference's
     f32 wire does."""
-    if meta.get("codes_on_host"):
-        raise NotImplementedError(
-            "this snapshot's codes were spilled to host RAM; host-resident codes "
-            "are not ported yet (ROADMAP queue 1: spill tiers)"
-        )
     if meta.get("capacity"):
         cap = int(meta["capacity"])
     else:  # pre-capacity layout: the graph's adjacency had one row per slot
         with open(snap_dir / "adj0.meta.json") as f:
             cap = int(json.load(f)["shape"][0])
     raw = load_chunked(snap_dir, "raw")
-    if raw is None and load_chunked(snap_dir, "raw_host") is not None:
-        raise NotImplementedError(
-            "raw rows on the host or disk are not ported yet (ROADMAP queue 1: spill tiers)"
-        )
+    raw_host = None
+    if raw is None and chunked_exists(snap_dir, "raw_host"):
+        raw_host = "disk" if keep_raw_mode == "disk" else "host"
     vs = VectorStore(
         dim=dim, device=device, kind=meta["kind"], metric=meta["metric"],
-        resolution=int(meta["resolution"]), range=tuple(meta["range"]), keep_raw=False,
+        resolution=int(meta["resolution"]), range=tuple(meta["range"]), keep_raw=raw_host or False,
         raw_dtype=meta.get("raw_dtype") or "f32", initial_capacity=cap,
     )
     if vs.capacity != cap:
         raise ValueError(f"snapshot capacity {cap} is not a multiple of 128")
+    host = bool(meta.get("codes_on_host"))
 
     def dev(x, dtype=None):
-        return torch.as_tensor(np.ascontiguousarray(x), dtype=dtype, device=vs.device)
+        t = torch.as_tensor(np.ascontiguousarray(x), dtype=dtype)
+        if host and t.ndim:  # the spilled rows stay on the host (pinned)
+            return t.pin_memory() if vs._pin else t
+        return t.to(vs.device)
 
     empty = vs.arrays  # carries the dequant scalars rebuilt from range/dim
     mags = dev(z["mags"], torch.float32)
@@ -428,15 +439,61 @@ def _load_store(snap_dir: Path, meta: dict, z, dim: int, device) -> VectorStore:
         vs.arrays = empty._replace(data=data, sums=dev(z["sums"], torch.int32), mags=mags)
     else:
         vs.arrays = empty._replace(data=dev(load_chunked(snap_dir, "data"), empty.data.dtype), mags=mags)
+    vs.codes_on_host = host
     if raw is not None:
-        vs.raw = dev(raw)
+        vs.raw = torch.as_tensor(raw, device=vs.device)
         vs.keep_raw = True
+    elif raw_host:
+        # straight into the store's fresh (pinned) host rows or memmap
+        load_chunked(snap_dir, "raw_host", out_factory=lambda shape, dtype: vs.raw_host.numpy())
     vs.n = int(meta["n"])
     names = ["planes" if vs.kind == "subbyte" else "data"]
     if raw is not None:
         names.append("raw")
+    elif raw_host:
+        names.append("raw_host")
     adopt_tracker(snap_dir, vs.tracker, names)
     return vs
+
+
+def load_dense(d, snap_dir: Path, meta: dict) -> np.ndarray:
+    """Rebuild the dense handle ``d``'s index from the dense snapshot in
+    ``snap_dir`` (``meta``: its parsed ``dense.msgpack``); returns the
+    alive mask over the store's capacity."""
+    z = np.load(snap_dir / "dense.npz")
+    d.kind = _SUBBYTE_NAME[int(meta["resolution"])] if meta["kind"] == "subbyte" else meta["kind"]
+    d.range = tuple(meta["configured_range"])
+    d._build()
+    idx = d.index
+    idx.store.close()  # the fresh index's store is replaced
+    idx.store = _load_store(snap_dir, meta, z, d.dimension, d.device, d.keep_raw)
+    alive = np.ones(idx.store.capacity, bool)
+    saved_alive = np.asarray(z["alive"], bool)[: idx.store.capacity]
+    alive[: len(saved_alive)] = saved_alive
+    if meta.get("scan_only"):
+        # no graph: served by the scan at any size, tombstones in the mask
+        # (on the host while the codes are spilled)
+        idx.scan_only = True
+        idx.levels = np.asarray(z["levels"], np.int8).copy()
+        idx.level_counts = np.asarray(meta["level_counts"], np.int64)
+        idx.entry, idx.entry_level = int(meta["entry"]), int(meta["entry_level"])
+        if idx.store.codes_on_host:
+            idx._alive_host = alive.copy()
+            idx.alive = torch.ones((1,), dtype=torch.bool, device=idx.store.device)
+        else:
+            idx.alive = torch.as_tensor(alive, device=idx.store.device)
+        idx.n_deleted = int(meta["n_deleted"])
+        idx._sync_capacity()
+    else:
+        graph = {name: load_chunked(snap_dir, name) for name in _GRAPH_ARRAYS}
+        graph.update(
+            levels=z["levels"], up_slot=z["up_slot"], alive=alive, level_counts=meta["level_counts"],
+            n_up=meta["n_up"], entry=meta["entry"], entry_level=meta["entry_level"],
+            n_deleted=meta["n_deleted"],
+        )
+        idx.adopt_graph(graph)
+        adopt_tracker(snap_dir, idx.tracker, list(_GRAPH_ARRAYS))
+    return alive
 
 
 def load_collection_state(coll, snap_dir: str | Path) -> None:
@@ -472,33 +529,7 @@ def load_collection_state(coll, snap_dir: str | Path) -> None:
         with open(dense_meta_p, "rb") as f:
             meta = msgpack.unpackb(f.read(), strict_map_key=False)
         d = coll.dense
-        z = np.load(snap_dir / "dense.npz")
-        d.kind = _SUBBYTE_NAME[int(meta["resolution"])] if meta["kind"] == "subbyte" else meta["kind"]
-        d.range = tuple(meta["configured_range"])
-        d._build()
-        idx = d.index
-        idx.store = _load_store(snap_dir, meta, z, d.dimension, d.device)
-        alive = np.ones(idx.store.capacity, bool)
-        saved_alive = np.asarray(z["alive"], bool)[: idx.store.capacity]
-        alive[: len(saved_alive)] = saved_alive
-        if meta.get("scan_only"):
-            # no graph: served by the scan at any size, tombstones in the mask
-            idx.scan_only = True
-            idx.levels = np.asarray(z["levels"], np.int8).copy()
-            idx.level_counts = np.asarray(meta["level_counts"], np.int64)
-            idx.entry, idx.entry_level = int(meta["entry"]), int(meta["entry_level"])
-            idx.alive = torch.as_tensor(alive, device=idx.store.device)
-            idx.n_deleted = int(meta["n_deleted"])
-            idx._sync_capacity()
-        else:
-            graph = {name: load_chunked(snap_dir, name) for name in _GRAPH_ARRAYS}
-            graph.update(
-                levels=z["levels"], up_slot=z["up_slot"], alive=alive, level_counts=meta["level_counts"],
-                n_up=meta["n_up"], entry=meta["entry"], entry_level=meta["entry_level"],
-                n_deleted=meta["n_deleted"],
-            )
-            idx.adopt_graph(graph)
-            adopt_tracker(snap_dir, idx.tracker, list(_GRAPH_ARRAYS))
+        alive = load_dense(d, snap_dir, meta)
         if dense_rows is None and "internal_of" in meta:
             # pre-dense_rows layout kept the row maps in dense.msgpack
             dense_rows = {

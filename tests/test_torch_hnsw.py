@@ -210,5 +210,5 @@ def test_empty_and_small_semantics():
     t.add(x[1:])
     ids, _ = t.search(x[:8], top_k=1)
     assert (ids[:, 0] == np.arange(8)).all()
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1: spill tiers"):
-        t.force_spill()
+    with pytest.raises(RuntimeError, match="store is not spillable"):
+        t.force_spill()  # an f32 store with device raw rows

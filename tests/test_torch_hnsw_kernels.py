@@ -598,7 +598,62 @@ def test_merge_neighbors_3d():
     np.testing.assert_array_equal(_n(td), np.asarray(jd))
 
 
-def test_spill_graph_engine_not_ported():
-    for fn in (TK.beam_wave_select, TK.beam_wave_merge, TK.beam_hostcodes_init):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1: spill tiers"):
-            fn()
+def _wave_chunk(store_arrays, ids_mat, to):
+    """The host-codes engine's upload: the unique rows of an id matrix
+    (all ids alive here) as a u8 chunk of one package, and their slots."""
+    flat = ids_mat.reshape(-1)
+    ok = flat >= 0
+    uniq, inv = np.unique(flat[ok], return_inverse=True)
+    slots = np.full(ids_mat.shape, -1, np.int64)
+    slots.reshape(-1)[ok] = inv
+    rows = {k: np.asarray(getattr(store_arrays, k))[uniq] for k in ("data", "sums", "mags")}
+    return store_arrays._replace(**{k: to(v) for k, v in rows.items()}), slots
+
+
+def test_spill_graph_engine_not_ported(data):
+    """The host-codes graph engine (the spill tier's, ported now under its
+    old test name): beam_hostcodes_init, then waves of beam_wave_select and
+    beam_wave_merge on a u8 store, in lockstep with the reference's, each
+    fed the same uploaded rows. Visited words, candidate ids, expanded
+    flags and beam ids agree bit for bit, beam scores at rtol 2e-5."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(JS, "_WIRE_BW_MBPS", 1e9)
+        j = JS.VectorStore(dim=D, kind="u8", metric="cosine", range=(-0.3, 0.3), initial_capacity=CAP,
+                           ship_dtype="f32")
+        j.add(data["x"])
+        arrays = {k: np.asarray(v) for k, v in j._arrays._asdict().items()}
+        arrays.update(n=j.n, capacity=j.capacity, dim=D, range=j.range)
+        t = TS.VectorStore.from_arrays(arrays, metric="cosine", device="cpu")
+        jq = j.ship_query_codes(data["q"])
+    tq = t.ship_query_codes(data["q"])
+    rng = np.random.default_rng(9)
+    start = np.concatenate([np.full((B, 1), 7), rng.integers(0, N, size=(B, 8))], axis=1)
+    start[3, 5] = -1
+    start[4, 2] = start[4, 1]  # a duplicate start id
+    ef, w, expand = 40, -(-CAP // 32), 8
+    jc, slots = _wave_chunk(j._arrays, start, _j)
+    tc, _ = _wave_chunk(t.arrays, start, _t)
+    ji, js, je, jv = JK.beam_hostcodes_init("cosine", t.dim_pad, ef, w, jq, jc, _j(slots.astype(np.int32)),
+                                            _j(start.astype(np.int32)))
+    ti, ts, te, tv = TK.beam_hostcodes_init("cosine", t.dim_pad, ef, w, tq, tc, _tl(slots), _tl(start))
+    waves = 0
+    for _ in range(12):
+        np.testing.assert_array_equal(_n(ti), np.asarray(ji))
+        np.testing.assert_allclose(_n(ts), np.asarray(js), rtol=2e-5, atol=ATOL)
+        np.testing.assert_array_equal(_n(te), np.asarray(je))
+        np.testing.assert_array_equal(_n(tv).view(np.uint32), np.asarray(jv))
+        jn, je, jv, jdone = JK.beam_wave_select(ji, js, je, jv, _j(data["adj"]), expand)
+        tn, te, tv, tdone = TK.beam_wave_select(ti, ts, te, tv, _t(data["adj"]), expand)
+        np.testing.assert_array_equal(_n(tn), np.asarray(jn))
+        np.testing.assert_array_equal(_n(te), np.asarray(je))
+        np.testing.assert_array_equal(_n(tv).view(np.uint32), np.asarray(jv))
+        assert bool(tdone) == bool(jdone)
+        if bool(jdone):
+            break
+        nbrs = np.asarray(jn).astype(np.int64)
+        jc, slots = _wave_chunk(j._arrays, nbrs, _j)
+        tc, _ = _wave_chunk(t.arrays, nbrs, _t)
+        ji, js, je = JK.beam_wave_merge("cosine", t.dim_pad, jq, jc, _j(slots.astype(np.int32)), jn, ji, js, je)
+        ti, ts, te = TK.beam_wave_merge("cosine", t.dim_pad, tq, tc, _tl(slots), tn, ti, ts, te)
+        waves += 1
+    assert waves >= 3

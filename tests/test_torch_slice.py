@@ -256,7 +256,8 @@ def test_semantics(data):
 def test_routes_not_ported_raise(data, handles):
     """Above the serving limits the handle answers by its graph (built by
     insertion waves as the rows came in); the options not ported yet
-    raise, naming their ROADMAP item."""
+    raise, naming their ROADMAP item, and raw_storage "host" and "disk"
+    (the spill tiers) are accepted."""
     x, q, truth = data
     port, _ = handles
     old = port.flat_serve_threshold
@@ -280,12 +281,15 @@ def test_routes_not_ported_raise(data, handles):
         {"distance_metric": "hamming"},
         {"distance_metric": "euclidean", "quantization": {"type": "scalar", "data_type": "f32"}},
         {"distance_metric": "hamming", "quantization": {"type": "scalar", "data_type": "binary"}},
-        {"raw_storage": "host"},
-        {"raw_storage": "disk"},
         {"shards": 2},
     ):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TC.DenseIndexHandle(DIM, "cpu", **kwargs)
+    # the spill tiers are ported: host and disk raw rows are accepted
+    for tier in ("host", "disk"):
+        h = TC.DenseIndexHandle(DIM, "cpu", raw_storage=tier, quantization={"type": "scalar", "data_type": "u8"})
+        assert h.keep_raw == tier and h.index.store.raw_on_host and h.descriptor["raw_storage"] == tier
+        h.index.store.close()
     ids, _ = port.index.search(x[[5, 4321]], K)
     assert ids[:, 0].tolist() == [5, 4321]
 

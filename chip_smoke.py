@@ -11,12 +11,15 @@ Run from the repository root on a machine with one CUDA card:
 Phases: 0 environment; 1 build both kernels (u8_bin_max, K1;
 subbyte_code_scores, K2) from the checkout's sources, in parallel; 2 K1
 against its plain PyTorch version at the u8 path's shapes and the tiles'
-edges, timed beside its bound and torch._int_mm; 3 the u8 path at 1M x 768:
-a DenseIndexHandle filled as the reference's bench fills it (983,616 rows
-in one call: the graph's bulk build), one search, then 16 insertion waves
-of 1,024 rows, searched through DenseIndexHandle.search and
-FlatIndex.search, recall@10 against an exact f32 oracle and K1's launch
-count; 4 u8 search semantics, and the graph routes with the serving limits
+edges, by cosine, dot and euclidean, timed beside its bound and
+torch._int_mm (cosine at B=1024 and 128, euclidean at B=1024); 3 the u8
+path at 1M x 768: a DenseIndexHandle filled as the reference's bench fills
+it (983,616 rows in one call: the graph's bulk build), one search, then 16
+insertion waves of 1,024 rows, searched through DenseIndexHandle.search
+and FlatIndex.search, recall@10 against an exact f32 oracle and K1's launch
+count, then one batch of 12,288 queries, whose bin table passes the
+limit, through the approx select mode (K1 per 65,536-row chunk), against
+the oracle and the bins mode on its thirds; 4 u8 search semantics, and the graph routes with the serving limits
 below the rows (unfiltered and 50% filter by the graph, 5% filter by the
 scan, a deleted id never back); 5 K2 and its query unpack against their
 plain versions, bit for bit, timed likewise; 6 the sub-byte path on the
@@ -81,8 +84,18 @@ written over REST under a pinned COSDATA_HBM_GB, whose codes spill while
 the transaction is indexed, searched, filtered and streamed a delete
 against an exact oracle, then restarted with the budget pinned (codes
 loaded on the host, answers identical, gRPC equal to REST) and lifted
-(flush promotes the codes; answers identical, K1 launched). K1 and K2
-launch counts are read around each path. Any failure exits non-zero. The last line is one JSON
+(flush promotes the codes; answers identical, K1 launched); 20 the other
+metrics over phase 3's rows scaled by a seeded factor in [0.5, 1.5] (so
+that euclidean ranks unlike cosine): a euclidean u8 DenseIndexHandle with
+host raw rows filled as phase 3's (the scan, the graph at ef 128 and 256,
+the approx mode at 12,288 queries, then force_spill(keep_graph=True) and
+the streamed scan, K1 per chunk), a hamming u8 handle (scan-only, no
+adjacency) whose unreranked distances equal an XOR-popcount oracle
+computed on the card, hamming binary and f16 FlatIndexes at 262,144 rows
+held the same way, a euclidean f32 FlatIndex, the quaternary euclidean
+ValueError, and a euclidean and a hamming collection of 16,384 rows over
+REST (a streamed delete, a restart answering identically, gRPC equal to
+REST). K1 and K2 launch counts are read around each path. Any failure exits non-zero. The last line is one JSON
 object naming the device.
 """
 
@@ -126,6 +139,9 @@ except ModuleNotFoundError as err:
 
 SEED = 0
 N, DIM, NQ = 1_000_000, 768, 4096
+#: one batch whose bin table (NQ_APPROX x 32,768 bins at 1M rows) passes
+#: flat_scan.MAX_BIN_TABLE, so the scan takes the approx select mode
+NQ_APPROX = 12_288
 #: the reference's quaternary bench row (BENCH_r05.json, bench.py:777-805)
 N_SUB = 262_144
 ADD_BATCH = 131072
@@ -181,19 +197,20 @@ def timed_search(fn, reps: int = 5) -> tuple[float, object]:
 
 
 #: K1's timed shapes: B=1024 (the bench batch) and B=128 (one served
-#: request), both at C=1,048,576, Dp=768, cosine
-K1_TIMED = (1024, 128)
+#: request), both at C=1,048,576, Dp=768, cosine; euclidean at B=1024
+K1_TIMED_CASES = (("cosine", 1024), ("cosine", 128), ("euclidean", 1024))
 
 
 def kernel_timing(what: str, kernel, plain, library, plain_reps: int, ops: float, nbytes: float,
-                  card: str) -> dict:
+                  card: str, f32_ops: float = 0.0) -> dict:
     """Plain, kernel, kernel, plain in turns, each the median of single
     calls timed alone (``cuda_ms``: 5 calls, ``plain_reps`` for the plain
     version), then one library call on the same inputs (``torch._int_mm``:
     the product only; None where there is none) timed the same way. Then
     the kernel and the library call back to back (``device_ms``, 20 calls
     behind a spin kernel: no host time between calls), under their own
-    keys. And the bound for ``ops`` int8 operations moving ``nbytes``."""
+    keys. And the bound for ``ops`` int8 operations (and ``f32_ops`` float32
+    ones) moving ``nbytes``."""
     p1 = cuda_ms(plain, plain_reps)
     k1 = cuda_ms(kernel, 5)
     k2 = cuda_ms(kernel, 5)
@@ -201,7 +218,7 @@ def kernel_timing(what: str, kernel, plain, library, plain_reps: int, ops: float
     lib = cuda_ms(library, 5) if library else None
     b2b = device_ms(kernel, 20)
     lib_b2b = device_ms(library, 20) if library else None
-    bound_ms, bound_by = bound(ops, nbytes)
+    bound_ms, bound_by = bound(ops, nbytes, f32_ops)
     lib_text = f"torch._int_mm (product only) {lib:.4f} ms, back to back {lib_b2b:.4f}; " if library else ""
     print(f"  time at {what}: kernel {k1:.4f}/{k2:.4f} ms, back to back {b2b:.4f}; plain {p1:.3f}/{p2:.3f} ms; "
           f"{lib_text}bound {bound_ms:.4f} ms ({bound_by}) [{card}]", flush=True)
@@ -211,7 +228,9 @@ def kernel_timing(what: str, kernel, plain, library, plain_reps: int, ops: float
 
 def kernel_check(gen, dev, card: str) -> tuple[float, dict]:
     """K1 against its plain version at the listed shapes (B = 1, 100 and 128
-    and C = 4,128 hit the tiles' edges); returns (max_abs_err, timings by B)."""
+    and C = 4,128 hit the tiles' edges), by cosine, dot and euclidean;
+    returns (max_abs_err, timings by B for cosine and "euclidean" at
+    B=1024)."""
     max_err = 0.0
     timed = {}
     for c in (4_128, 65_536, 1_048_576):
@@ -224,7 +243,7 @@ def kernel_check(gen, dev, card: str) -> tuple[float, dict]:
             valid[5] = False
             valid[c - 1000 :] = False  # ragged valid tail
             valid[c // 2 : c // 2 + 64] = False  # two whole invalid bins
-            for metric in ("cosine", "dot"):
+            for metric in ("cosine", "dot", "euclidean"):
                 errs = []
                 for b in (1, 8, 100, 128, 1024, 4096):
                     q = quantize_u8(torch.rand((b, dp), generator=gen, device=dev) * 2 - 1, -0.6, 0.7, d_true)
@@ -244,13 +263,15 @@ def kernel_check(gen, dev, card: str) -> tuple[float, dict]:
                     if bool(bad.any()):
                         fail(f"kernel disagrees with plain at B={b} C={c} Dp={dp} {metric}: {e}")
                     max_err = max(max_err, e)
-                    if (c, dp, metric) == (1_048_576, 768, "cosine") and b in K1_TIMED:
-                        # codes and query codes read once, the row and query terms, the bins written
-                        timed[b] = kernel_timing(
-                            f"B={b} C={c} Dp={dp}", lambda: u8_scan.u8_bin_max(metric, 32, t),
+                    if (c, dp) == (1_048_576, 768) and (metric, b) in K1_TIMED_CASES:
+                        # codes and query codes read once, the row and query terms, the bins
+                        # written; euclidean's f32 epilogue is ~12 operations per score
+                        timed[b if metric == "cosine" else metric] = kernel_timing(
+                            f"B={b} C={c} Dp={dp} {metric}", lambda: u8_scan.u8_bin_max(metric, 32, t),
                             lambda: u8_scan.u8_bin_max_plain(metric, 32, t),
                             lambda: torch._int_mm(t.q_codes, t.codes.t()), 3, 2.0 * b * c * dp,
-                            c * dp + b * dp + 12 * c + 8 * b + 4 * b * (c // 32), card)
+                            c * dp + b * dp + 12 * c + 8 * b + 4 * b * (c // 32), card,
+                            f32_ops=12.0 * b * c if metric == "euclidean" else 0.0)
                     del t, got, want
                 print(f"  C={c:8d} Dp={dp:4d} {metric:6s} max_abs_err {' '.join(errs)}", flush=True)
             del store
@@ -303,7 +324,35 @@ def graph_ingest(handle: DenseIndexHandle, x, q, card: str, name: str) -> None:
         fail(f"{name}: the graph was not built ({idx.n} rows, scan_only {idx.scan_only})")
 
 
-def main_path(x, q, truth, dev, card: str) -> tuple[int, DenseIndexHandle]:
+def approx_check(name: str, search, q_big, truth_big: torch.Tensor, capacity: int, card: str) -> int:
+    """One batch of NQ_APPROX queries through ``search`` (host ids and
+    scores): its bin table passes flat_scan.MAX_BIN_TABLE, so the scan
+    selects in the approx mode, K1 once per CODES_CHUNK-row chunk; gated on
+    recall@10 against ``truth_big``, on K1's launches per batch, and on ids
+    equal, on untied slots, to the bins mode run on the batch's thirds.
+    Returns K1's launches over the check."""
+    reset_counts()
+    search(q_big)
+    per_batch = u8_scan.u8_bin_max.launches
+    t, (ids, _) = timed_search(lambda: search(q_big), reps=1)
+    third = NQ_APPROX // 3
+    parts = [search(q_big[s : s + third]) for s in range(0, NQ_APPROX, third)]
+    launches = u8_scan.u8_bin_max.launches
+    b_ids, b_sc = (np.concatenate([p[i] for p in parts]) for i in (0, 1))
+    check_results(f"{name} b{NQ_APPROX} (approx select)", ids, truth_big, t, card, True)
+    same, share = untied_equal(ids, b_ids, b_sc)
+    chunks = -(-capacity // flat_scan.CODES_CHUNK)
+    print(f"  bin table {NQ_APPROX} x {capacity // 32} > {flat_scan.MAX_BIN_TABLE}: K1 launches per batch "
+          f"{per_batch} ({chunks} chunks of {flat_scan.CODES_CHUNK}); ids equal to the bins mode on the thirds "
+          f"(b{third}) on untied slots {same} ({share:.1%} of slots) [{card}]", flush=True)
+    if per_batch != chunks:
+        fail(f"{name}: the approx mode launched K1 {per_batch} times per batch, want {chunks}")
+    if not same:
+        fail(f"{name}: the approx mode's ids differ from the bins mode's on untied slots")
+    return launches
+
+
+def main_path(x, q, q_big, truth, dev, card: str) -> tuple[int, DenseIndexHandle]:
     """Phases 3 and 4; returns K1's launches during the u8 path and the
     handle, which phases 11 and 18 serve."""
     t0 = time.perf_counter()
@@ -332,6 +381,8 @@ def main_path(x, q, truth, dev, card: str) -> tuple[int, DenseIndexHandle]:
           f"u8_bin_max launches {launches} [{card}]")
     if launches == 0:
         fail("the main path never launched u8_bin_max")
+    launches += approx_check("DenseIndexHandle.search", lambda qq: handle.search(qq, 10), q_big,
+                             exact_top10(q_big, x), handle.index.cap, card)
 
     phase("4 semantics")
     probe = [7, N // 3]
@@ -1897,6 +1948,254 @@ def spill_rest_phase(data_dir: str, x_sp: np.ndarray, q_rest: np.ndarray, dev, c
     return launches
 
 
+#: popcount of each byte value, the hamming oracle's table
+POPCOUNT8 = [bin(i).count("1") for i in range(256)]
+
+
+def euclidean_top10(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Exact f32 euclidean top-10 (least distance): the largest 2 q·x - |x|²."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x_sq = (x * x).sum(1)
+    return torch.cat([torch.topk(2.0 * (q[s : s + 512] @ x.T) - x_sq[None, :], 10, dim=1).indices
+                      for s in range(0, len(q), 512)])
+
+
+def hamming_oracle(q_bytes: torch.Tensor, x_bytes: torch.Tensor) -> torch.Tensor:
+    """The 10 least hamming distances of each query, ascending, by an
+    independent formula: XOR of the stored bytes (B, nb) x (N, nb) uint8 and
+    a byte popcount table, summed over the bytes."""
+    table = torch.tensor(POPCOUNT8, dtype=torch.uint8, device=x_bytes.device)
+    out = []
+    for s in range(0, len(q_bytes), 8):
+        qq = q_bytes[s : s + 8]
+        dist = torch.cat([
+            torch.index_select(table, 0, (qq[:, None, :] ^ x_bytes[None, r : r + 65_536]).reshape(-1).int())
+            .view(len(qq), -1, x_bytes.shape[1]).sum(-1, dtype=torch.int32)
+            for r in range(0, len(x_bytes), 65_536)
+        ], 1)
+        out.append(torch.topk(dist, 10, dim=1, largest=False).values)
+    return torch.cat(out)
+
+
+def hamming_gate(name: str, vals, oracle: torch.Tensor, t: float, card: str) -> None:
+    """Unreranked hamming scores are negated distances: slot for slot the oracle's."""
+    got = -torch.as_tensor(np.asarray(vals), device=oracle.device).to(torch.float32)
+    same = bool((got == oracle.to(torch.float32)).all())
+    print(f"{name}: hamming distances equal the XOR-popcount oracle's top-10, slot for slot, {same} "
+          f"(distances {int(oracle[:, 0].min())}-{int(oracle[:, -1].max())}); {t * 1e3:.2f} ms/batch [{card}]",
+          flush=True)
+    if not same:
+        fail(f"{name}: hamming distances differ from the oracle's")
+
+
+def euclidean_handle_phase(xs, q, q_big, truth_e, dev, card: str) -> dict:
+    """Phase 20a: a euclidean u8 DenseIndexHandle (host raw rows) filled as
+    phase 3's: the scan, the graph at ef 128 and 256, the approx mode, then
+    force_spill(keep_graph=True) and the streamed scan. Returns K1's
+    launches and its launches per streamed batch."""
+    handle = DenseIndexHandle(DIM, dev, distance_metric="euclidean", raw_storage="host")
+    graph_ingest(handle, xs, q, card, "euclidean u8 handle")
+    idx = handle.index
+    reset_counts()
+    t, (ids, _) = timed_search(lambda: handle.search(q[:1024], 10))
+    check_results("euclidean DenseIndexHandle.search b1024 (scan, host rerank)", ids, truth_e[:1024], t, card, True)
+    launches = u8_scan.u8_bin_max.launches
+    print(f"  K1 (euclidean) launches {launches} [{card}]", flush=True)
+    if launches == 0:
+        fail("the euclidean scan never launched u8_bin_max")
+    for ef in (128, 256):
+        t, (ids, _) = timed_search(lambda: idx.search(q[:1024], 10, ef=ef), reps=1)
+        check_results(f"euclidean HNSWIndex.search ef={ef} b1024 (graph)", ids, truth_e[:1024], t, card, ef == 256)
+    reset_counts()
+    launches += approx_check("euclidean DenseIndexHandle.search", lambda qq: handle.search(qq, 10), q_big,
+                             euclidean_top10(q_big, xs), idx.cap, card)
+    idx.force_spill(keep_graph=True)
+    if not (idx.store.codes_on_host and idx.graph_on_spill):
+        fail("force_spill(keep_graph=True) did not spill the euclidean codes")
+    reset_counts()
+    idx.search_brute(q[:1024], 10)
+    per_batch = u8_scan.u8_bin_max.launches
+    t, (ids, _) = timed_search(lambda: idx.search_brute(q[:1024], 10), reps=2)
+    launches += u8_scan.u8_bin_max.launches
+    check_results("euclidean streamed search_brute b1024 (K1 per chunk, host rerank)", ids, truth_e[:1024], t,
+                  card, True)
+    chunks = -(-idx.cap // flat_scan.STREAM_CHUNK)
+    print(f"  streamed K1 launches per batch {per_batch} ({chunks} chunks) [{card}]", flush=True)
+    if per_batch != chunks:
+        fail(f"the streamed euclidean scan launched K1 {per_batch} times, want {chunks}")
+    idx.store.close()
+    return {"launches": launches, "streamed_per_batch": per_batch}
+
+
+def hamming_handle_phase(xs, q, truth_e, dev, card: str) -> None:
+    """Phase 20b: a hamming u8 DenseIndexHandle over the same rows:
+    scan-only with no adjacency; unreranked distances held to the oracle,
+    the served (euclidean-reranked) answers' recall printed."""
+    handle = DenseIndexHandle(DIM, dev, distance_metric="hamming")
+    t0 = time.perf_counter()
+    handle.add_batch(list(range(N)), xs)
+    torch.cuda.synchronize()
+    idx = handle.index
+    adj = sum(t.numel() for t in (idx.adj0, idx.adj0_d, idx.up_adj, idx.up_d))
+    print(f"hamming u8 handle: ingest of {N} rows {time.perf_counter() - t0:.1f} s; scan_only {idx.scan_only}, "
+          f"adjacency entries {adj} (placeholders), range {handle.range} [{card}]", flush=True)
+    if not idx.scan_only or idx.adj0.shape[0] != 1 or idx.n_up:
+        fail("the hamming index holds an adjacency")
+    qb = q[:1024]
+    reset_counts()
+    t, (_, vals) = timed_search(lambda: idx.search_brute(qb, 10, rerank=False))
+    store = idx.store
+    codes = lambda data: data.view(torch.uint8) ^ 0x80  # noqa: E731  (the u8 code of a centered byte)
+    t0 = time.perf_counter()
+    oracle = hamming_oracle(codes(store.quantize_queries(qb).data), codes(store.arrays.data[: idx.n]))
+    print(f"  oracle in {time.perf_counter() - t0:.1f} s; K1 launches {u8_scan.u8_bin_max.launches} (hamming "
+          f"has no bin kernel)", flush=True)
+    hamming_gate("hamming DenseIndexHandle search_brute(rerank=False) b1024", vals, oracle, t, card)
+    t, (ids, _) = timed_search(lambda: handle.search(qb, 10), reps=2)
+    r = recall10(ids, truth_e[:1024])
+    print(f"hamming DenseIndexHandle.search b1024, reranked by euclidean distance: recall@10 against the "
+          f"euclidean oracle {r:.4f} (the reference's semantics, not gated); {t * 1e3:.2f} ms/batch [{card}]",
+          flush=True)
+    store.close()
+
+
+def flat_metrics_phase(xs, q, dev, card: str) -> None:
+    """Phase 20c: hamming binary and f16 FlatIndexes at N_SUB rows held to
+    the oracle, a euclidean f32 FlatIndex's recall, and the quaternary
+    euclidean ValueError."""
+    xs = xs[:N_SUB]
+    qb = q[:1024]
+    for kind in ("binary", "f16"):
+        flat = FlatIndex(DIM, dev, metric="hamming", kind=kind, initial_capacity=N_SUB)
+        flat.add(xs)
+        t, (_, vals) = timed_search(lambda: flat.search(qb, 10), reps=2)
+        store = flat.store
+        if kind == "binary":
+            q_bytes = store.quantize_queries(qb).planes[0].contiguous().view(torch.uint8)
+            x_bytes = store.arrays.planes[0, :N_SUB].contiguous().view(torch.uint8)
+        else:
+            q_bytes = store.quantize_queries(qb).data.contiguous().view(torch.uint8)
+            x_bytes = store.arrays.data[:N_SUB].contiguous().view(torch.uint8)
+        hamming_gate(f"hamming {kind} FlatIndex.search b1024 ({N_SUB} rows)", vals, hamming_oracle(q_bytes, x_bytes),
+                     t, card)
+        del flat, store, q_bytes, x_bytes
+        torch.cuda.empty_cache()
+    flat = FlatIndex(DIM, dev, metric="euclidean", kind="f32", initial_capacity=N_SUB)
+    flat.add(xs)
+    t, (ids, _) = timed_search(lambda: flat.search(qb, 10, rerank=True), reps=2)
+    check_results(f"euclidean f32 FlatIndex.search b1024 ({N_SUB} rows)", ids, euclidean_top10(qb, xs), t, card, True)
+    del flat
+    flat = FlatIndex(DIM, dev, metric="euclidean", kind="quaternary", initial_capacity=65_536)
+    flat.add(xs[:65_536])
+    try:
+        flat.search(qb[:8], 10)
+    except ValueError as err:
+        print(f"quaternary euclidean FlatIndex.search raises ValueError: {err}", flush=True)
+        if "euclidean unsupported for sub-byte storage" not in str(err):
+            fail(f"quaternary euclidean raised another ValueError: {err}")
+    else:
+        fail("quaternary euclidean search answered; the reference raises ValueError")
+    del flat
+    torch.cuda.empty_cache()
+
+
+def metric_rest_phase(data_dir: str, x_rest: np.ndarray, q_rest: np.ndarray, dev, card: str) -> None:
+    """Phase 20d: a euclidean and a hamming collection of N_SP_REST rows
+    written over REST in one transaction, searched, streamed a delete,
+    answered by gRPC as by REST, and restarted: the same answers, the
+    deleted vector gone."""
+    from cosdata_tpu_torch.grpc_api import vector_service_pb2 as pb
+
+    truth = euclidean_top10(torch.as_tensor(q_rest, dtype=torch.float32, device=dev),
+                            torch.as_tensor(x_rest, dtype=torch.float32, device=dev)).cpu().numpy()
+    ctx = AppContext(load_config(data_path=data_dir), admin_key=ADMIN_KEY, device=dev)
+    server = RestServer(ctx)
+    client = RestClient(server.port)
+    client.login()
+    before = {}
+    rows = x_rest.tolist()
+    for metric in ("euclidean", "hamming"):
+        name, c = f"m_{metric}", f"/vectordb/collections/m_{metric}"
+        client.ok("POST", "/vectordb/collections", {"name": name, "dense_vector": {"enabled": True, "dimension": DIM}})
+        client.ok("POST", c + "/indexes/dense", {"name": f"{name}_dense", "distance_metric_type": metric,
+                                                 "quantization": {"type": "auto"}})
+        t0 = time.perf_counter()
+        txn = client.ok("POST", c + "/transactions", {})["transaction_id"]
+        for s in range(0, len(rows), UPSERT_ROWS):
+            client.ok("POST", f"{c}/transactions/{txn}/upsert",
+                      {"vectors": [{"id": i, "dense_values": rows[i]} for i in range(s, s + UPSERT_ROWS)]})
+        client.ok("POST", f"{c}/transactions/{txn}/commit", {})
+        while client.ok("GET", f"{c}/transactions/{txn}/status")["status"] != "complete":
+            if time.perf_counter() - t0 > 600:
+                fail(f"the {metric} transaction did not complete")
+            time.sleep(0.2)
+        t_ingest = time.perf_counter() - t0
+        ids, _, dt, lat = batch_search(client, name, q_rest, WORKERS)
+        r = float((ids[:, :, None] == truth[:, None, :]).any(-1).sum()) / truth.size
+        print(f"REST {metric} collection: ingest of {len(rows)} x {DIM} {t_ingest:.1f} s; /search/batch-dense "
+              f"recall@10 against the euclidean oracle {r:.4f}{' (not gated)' if metric == 'hamming' else ''}; "
+              f"{len(q_rest) / dt:.1f} qps [{card}]", flush=True)
+        if metric == "euclidean" and r < MIN_RECALL:
+            fail(f"REST euclidean recall@10 {r:.4f} < {MIN_RECALL}")
+        victim = int(ids[0, 0])
+        client.ok("DELETE", f"{c}/streaming/vectors/{victim}")
+        res = client.ok("POST", c + "/search/dense", {"query_vector": rows[victim], "top_k": 10})["results"]
+        if victim in [r["id"] for r in res] or len(res) != 10:
+            fail(f"{metric}: the streamed delete of {victim} came back")
+        seq = batch_search(client, name, q_rest[:256], 1)
+        got, _ = grpc_find(ctx, [pb.FindSimilarVectorsRequest(
+            collection_id=name, dense=pb.FindSimilarDenseVectorsQuery(vector=v.tolist(), top_k=10),
+        ) for v in q_rest[:8]])
+        print(f"  streamed delete of {victim}: ok; gRPC FindSimilarVectors x8: ids equal REST's "
+              f"{got == seq[0][:8].tolist()}", flush=True)
+        if got != seq[0][:8].tolist():
+            fail(f"{metric}: gRPC ids differ from REST's")
+        before[metric] = (seq[0], seq[1], victim)
+    client.close()
+    server.close()
+    ctx.close()
+    ctx = AppContext(load_config(data_path=data_dir), admin_key=ADMIN_KEY, device=dev)
+    server = RestServer(ctx)
+    client = RestClient(server.port)
+    client.login()
+    for metric, (ids0, sc0, victim) in before.items():
+        ids, sc, _, _ = batch_search(client, f"m_{metric}", q_rest[:256], 1)
+        status, _ = client.call("GET", f"/vectordb/collections/m_{metric}/vectors/{victim}")
+        res = client.ok("POST", f"/vectordb/collections/m_{metric}/search/dense",
+                        {"query_vector": rows[victim], "top_k": 10})["results"]
+        same = bool((ids == ids0).all() and (sc == sc0).all())
+        gone = status == 404 and victim not in [r["id"] for r in res]
+        print(f"  {metric} after restart: ids and scores identical {same}; deleted {victim} absent {gone} "
+              f"(HTTP {status}) [{card}]", flush=True)
+        if not (same and gone):
+            fail(f"the restarted {metric} collection answered differently or served the deleted vector")
+    client.close()
+    server.close()
+    ctx.close()
+
+
+def other_metrics_phase(x, q, q_big, truth, dev, card: str) -> dict:
+    """Phase 20 (module doc); returns K1's euclidean launches."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+    xs = x * (torch.rand((N, 1), generator=gen, device=dev) + 0.5)
+    t0 = time.perf_counter()
+    truth_e = euclidean_top10(q, xs)
+    print(f"corpus: phase 3's rows scaled by U[0.5, 1.5]; euclidean oracle in {time.perf_counter() - t0:.1f} s; "
+          f"its top-10 overlap with the cosine oracle's {recall10(truth_e, truth):.4f}", flush=True)
+    out = euclidean_handle_phase(xs, q, q_big, truth_e, dev, card)
+    torch.cuda.empty_cache()
+    hamming_handle_phase(xs, q, truth_e, dev, card)
+    torch.cuda.empty_cache()
+    flat_metrics_phase(xs, q, dev, card)
+    x_rest = np.round(xs[:N_SP_REST].cpu().numpy().astype(np.float64), 6)
+    q_rest = np.round(q[:NQ_REST].cpu().numpy().astype(np.float64), 6)
+    with tempfile.TemporaryDirectory(prefix="cosdata_smoke_") as data_dir:
+        metric_rest_phase(data_dir, x_rest, q_rest, dev, card)
+    del xs
+    torch.cuda.empty_cache()
+    return out
+
+
 def launches_per_batch(kernels, search) -> list[int]:
     """The launches of each of ``kernels`` in one b1024 search of the main path."""
     reset_counts()
@@ -1941,15 +2240,16 @@ def main() -> None:
     max_err, k1_timed = kernel_check(gen, dev, card)
     print(f"kernel vs plain: max_abs_err {max_err:.3g} (rtol {RTOL}, atol {ATOL}); B=1024 C=1048576 Dp=768: "
           f"kernel {k1_timed[1024]['ms']:.4f} ms, plain {k1_timed[1024]['plain_ms']:.3f} ms; B=128: kernel "
-          f"{k1_timed[128]['ms']:.4f} ms [{card}]")
+          f"{k1_timed[128]['ms']:.4f} ms; euclidean B=1024: kernel {k1_timed['euclidean']['ms']:.4f} ms, plain "
+          f"{k1_timed['euclidean']['plain_ms']:.3f} ms [{card}]")
 
     phase(f"3 main path at {N} x {DIM}")
     t0 = time.perf_counter()
-    x, q = clustered(N, NQ, DIM, gen, dev)
+    x, q, q_big = clustered(N, NQ, DIM, gen, dev, NQ_APPROX)
     truth = exact_top10(q, x)
     torch.cuda.synchronize()
     print(f"corpus + oracle in {time.perf_counter() - t0:.1f} s")
-    launches, u8_handle = main_path(x, q, truth, dev, card)
+    launches, u8_handle = main_path(x, q, q_big, truth, dev, card)
     (k1_per_batch,) = launches_per_batch([u8_scan.u8_bin_max], lambda: u8_handle.search(q[:1024], 10))
     torch.cuda.empty_cache()
 
@@ -2039,6 +2339,12 @@ def main() -> None:
     launches += spilled["launches"] + k1_spill_rest
     k2_launches += k2_spill
     unpack_launches += unpack_spill
+
+    phase(f"20 other metrics at {N} x {DIM}: euclidean and hamming")
+    t0 = time.perf_counter()
+    other = other_metrics_phase(x, q, q_big, truth, dev, card)
+    launches += other["launches"]
+    print(f"phase 20 in {time.perf_counter() - t0:.1f} s")
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
     print(card)
@@ -2058,6 +2364,8 @@ def main() -> None:
         "max_abs_err": max_err,
         **k1_timed[1024],
         "b128": k1_timed[128],
+        "euclidean": {**k1_timed["euclidean"], "launches": other["launches"],
+                      "streamed_launches_per_batch": other["streamed_per_batch"]},
     }, {
         "name": "subbyte_code_scores",
         "route": "cuda",

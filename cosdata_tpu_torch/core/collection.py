@@ -121,11 +121,6 @@ class DenseIndexHandle:
         if key not in _METRIC_ALIAS:
             raise ValueError(f"unknown distance metric '{distance_metric}'")
         self.metric = _METRIC_ALIAS[key]
-        if self.metric not in ("cosine", "dot"):
-            raise NotImplementedError(
-                f"{self.metric} dense search is not ported yet "
-                "(ROADMAP queue 1: euclidean and hamming stage 1)"
-            )
         params = HNSWParams()
         for k, v in (hnsw_params or {}).items():
             if hasattr(params, k) and v is not None:

@@ -11,6 +11,24 @@
 //   sc  = sc + v_sink[row]                     (-3e38 on invalid rows)
 //   out[q, j] = max over rows j*32 .. j*32+31 of sc[q, row]
 //
+// and, for euclidean (which the Pallas kernel does not compute), the
+// reference's euclidean_u8 (cosdata_tpu/ops/distance.py:74-77) in its own
+// op order, from the code sums s (q_add, v_add: exact integers in f32) and
+// the squared magnitudes (q_inv, v_inv), with consts = (a2, ab, bbd):
+//
+//   code = cc + 128 * (s[q] + s[row]) + Dp * 128 * 128       int32
+//   dot  = (a2 * f32(code) + ab * f32(s[q] + s[row] + 256 * Dp)) + bbd
+//   d2   = (q_inv[q] + v_inv[row]) - 2 * dot
+//   sc   = -sqrt(max(d2, 0)) + v_sink[row]
+//
+// (f32(s[q] + s[row] + 256 * Dp) is the reference's f32 uq + uv, exact
+// while it stays below 2^24.) -sqrt is decreasing, so a bin's maximum is
+// -sqrt of its least d2 over its valid rows: the epilogue keeps that least
+// d2 and takes one correctly rounded square root per bin. A row whose sink
+// is not 0 is invalid (the wrapper writes 0 or kSink); a bin of invalid
+// rows only is kSink, which is what kSink plus -sqrt of any finite d2
+// rounds to.
+//
 // The bins are CONTIGUOUS groups of 32 rows, out is (B, C/32) f32. (The
 // Pallas kernel emits strided row groups, transposed, because Mosaic lowers
 // nothing else; the torch engine expands contiguous bins.)
@@ -69,13 +87,15 @@ constexpr int kStageBytes = kABytes + kBBytes;
 constexpr int kTermBytes = 3 * kBN * 4;    // a tile's v_add, v_inv, v_sink
 constexpr int kSmemBytes = kStages * kStageBytes + 2 * kTermBytes + 2 * (kStages + 2) * 8 + 1024;
 constexpr int kBinsPerTile = kBN / kGroup;
+constexpr int kCosine = 0, kDot = 1, kEuclidean = 2;  // the metric codes of the launch
+constexpr float kSink = -3.0e38f;                     // an invalid row's v_sink
 
-template <bool kCosine>
+template <int kMetric>
 __global__ void __launch_bounds__(kThreads, 1)
 u8_bin_max_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap c_map,
                   const float* __restrict__ q_add, const float* __restrict__ q_inv,
                   const float* __restrict__ v_add, const float* __restrict__ v_inv,
-                  const float* __restrict__ v_sink, const float* __restrict__ a2_ptr,
+                  const float* __restrict__ v_sink, const float* __restrict__ consts,
                   float* __restrict__ out, int B, int C, int n_ks, int n_qtiles, int n_tiles) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = hopper::align1024(smem_raw);
@@ -134,8 +154,13 @@ u8_bin_max_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_consta
     const int tid = threadIdx.x % 128;
     const int lane = tid % 32;
     const int quad = lane & 3;
-    const float a2 = *a2_ptr;
-    const float kNegInf = -__int_as_float(0x7f800000);
+    const float a2 = consts[0];
+    const float ab = consts[1];   // euclidean only
+    const float bbd = consts[2];  // euclidean only
+    const int code0 = n_ks * kBK * 128 * 128;  // euclidean: Dp * 128^2
+    const int u0 = n_ks * kBK * 256;           // euclidean: 2 * 128 * Dp
+    const float kInf = __int_as_float(0x7f800000);
+    const float kNegInf = -kInf;
     int stage = 0, prev = 0;
     uint32_t phase = 0;
     int32_t acc[128];
@@ -191,7 +216,8 @@ u8_bin_max_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_consta
 #pragma unroll
       for (int bn = 0; bn < kBinsPerTile; ++bn) {
         if (bin0 + bn >= n_bins) continue;  // uniform: a bin lies wholly inside or past C
-        float m[2] = {kNegInf, kNegInf};
+        // cosine, dot: the running max of sc; euclidean: the least d2 of valid rows
+        float m[2] = {kMetric == kEuclidean ? kInf : kNegInf, kMetric == kEuclidean ? kInf : kNegInf};
 #pragma unroll
         for (int jj = 0; jj < kGroup / 8; ++jj) {
           const int j = bn * (kGroup / 8) + jj;  // n8 block of the accumulator
@@ -204,19 +230,34 @@ u8_bin_max_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_consta
 #pragma unroll
             for (int h = 0; h < 2; ++h) {
               const int32_t cc = acc[4 * j + 2 * h + e];
-              const float dot =
-                  __fadd_rn(__fadd_rn(__fmul_rn(a2, __int2float_rn(cc)), e ? va.y : va.x), qa[h]);
-              float sc = __fmul_rn(dot, e ? vi.y : vi.x);
-              if (kCosine) sc = __fmul_rn(sc, qi[h]);
-              sc = __fadd_rn(sc, e ? vs.y : vs.x);
-              m[h] = fmaxf(m[h], sc);
+              if constexpr (kMetric == kEuclidean) {
+                const int s = __float2int_rn(qa[h]) + __float2int_rn(e ? va.y : va.x);
+                const float cd = __int2float_rn(cc + 128 * s + code0);
+                const float u = __int2float_rn(s + u0);
+                const float dot = __fadd_rn(__fadd_rn(__fmul_rn(a2, cd), __fmul_rn(ab, u)), bbd);
+                const float d2 = __fsub_rn(__fadd_rn(qi[h], e ? vi.y : vi.x), __fadd_rn(dot, dot));
+                if ((e ? vs.y : vs.x) == 0.0f) m[h] = fminf(m[h], d2);
+              } else {
+                const float dot =
+                    __fadd_rn(__fadd_rn(__fmul_rn(a2, __int2float_rn(cc)), e ? va.y : va.x), qa[h]);
+                float sc = __fmul_rn(dot, e ? vi.y : vi.x);
+                if (kMetric == kCosine) sc = __fmul_rn(sc, qi[h]);
+                sc = __fadd_rn(sc, e ? vs.y : vs.x);
+                m[h] = fmaxf(m[h], sc);
+              }
             }
           }
         }
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          m[h] = fmaxf(m[h], __shfl_xor_sync(0xffffffffu, m[h], 1));
-          m[h] = fmaxf(m[h], __shfl_xor_sync(0xffffffffu, m[h], 2));
+          if constexpr (kMetric == kEuclidean) {
+            m[h] = fminf(m[h], __shfl_xor_sync(0xffffffffu, m[h], 1));
+            m[h] = fminf(m[h], __shfl_xor_sync(0xffffffffu, m[h], 2));
+            m[h] = m[h] == kInf ? kSink : __fadd_rn(-__fsqrt_rn(fmaxf(m[h], 0.0f)), 0.0f);
+          } else {
+            m[h] = fmaxf(m[h], __shfl_xor_sync(0xffffffffu, m[h], 1));
+            m[h] = fmaxf(m[h], __shfl_xor_sync(0xffffffffu, m[h], 2));
+          }
           if ((bn >> 1) == quad) keep[h][bn & 1] = m[h];
         }
       }
@@ -239,13 +280,15 @@ u8_bin_max_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_consta
 
 }  // namespace
 
-// metric: 0 = cosine, 1 = dot. Pointers are device pointers; a2 points at
-// one float on the device. Returns the cudaError_t of the launch.
+// metric: 0 = cosine, 1 = dot, 2 = euclidean. Pointers are device
+// pointers; consts points at three floats on the device (a2, ab, bbd).
+// Returns the cudaError_t of the launch.
 extern "C" int u8_bin_max_launch(int metric, const void* q_codes, const void* q_add,
                                  const void* q_inv, const void* codes, const void* v_add,
-                                 const void* v_inv, const void* v_sink, const void* a2,
+                                 const void* v_inv, const void* v_sink, const void* consts,
                                  void* out, int B, long long C, int Dp, void* stream) {
-  if (B <= 0 || C <= 0 || C % kGroup != 0 || C > INT_MAX - kBN || Dp <= 0 || Dp % kBK != 0) {
+  if (B <= 0 || C <= 0 || C % kGroup != 0 || C > INT_MAX - kBN || Dp <= 0 || Dp % kBK != 0 ||
+      metric < kCosine || metric > kEuclidean || (metric == kEuclidean && Dp > 16384)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   CUtensorMap q_map, c_map;
@@ -258,13 +301,15 @@ extern "C" int u8_bin_max_launch(int metric, const void* q_codes, const void* q_
   const int sms = hopper::sm_count();
   if (sms <= 0) return static_cast<int>(cudaErrorInvalidDevice);
   const unsigned grid = static_cast<unsigned>(n_tiles < sms ? n_tiles : sms);
-  auto kernel = metric == 0 ? u8_bin_max_kernel<true> : u8_bin_max_kernel<false>;
+  auto kernel = metric == kCosine ? u8_bin_max_kernel<kCosine>
+                : metric == kDot  ? u8_bin_max_kernel<kDot>
+                                  : u8_bin_max_kernel<kEuclidean>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (e != cudaSuccess) return static_cast<int>(e);
   kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
       q_map, c_map, static_cast<const float*>(q_add), static_cast<const float*>(q_inv),
       static_cast<const float*>(v_add), static_cast<const float*>(v_inv), static_cast<const float*>(v_sink),
-      static_cast<const float*>(a2), static_cast<float*>(out), B, static_cast<int>(C), Dp / kBK, n_qtiles, static_cast<int>(n_tiles));
+      static_cast<const float*>(consts), static_cast<float*>(out), B, static_cast<int>(C), Dp / kBK, n_qtiles, static_cast<int>(n_tiles));
   return static_cast<int>(cudaGetLastError());
 }
 

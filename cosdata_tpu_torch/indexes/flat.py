@@ -164,7 +164,7 @@ class FlatIndex:
             )
         mask = self._mask()
         q = store.quantize_queries(queries)
-        vals, ids = topk(store.scores_all(q), k_fetch, mask=mask[None, :])
+        vals, ids = topk(store.scores_all(q), k_fetch, mask=mask[None, :], ties_by_index=store.metric == "hamming")
         if do_rerank:
             re = store.rerank_scores(queries, ids)
             re = torch.where(vals > NEG_INF / 2, re, NEG_INF)

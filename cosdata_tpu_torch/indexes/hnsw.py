@@ -19,6 +19,9 @@ cosdata_tpu/indexes/hnsw.py).
 - An index loaded from a snapshot without a graph is ``scan_only``: it
   takes rows without building a graph and every search takes the exact
   scan (:meth:`search_brute`), as the reference's scan-only index does.
+  A hamming index is scan-only from construction and holds no adjacency:
+  its XOR popcount has no dot formulation for the graph's scoring (the
+  reference's ``hnsw.py:397-403``).
 - The spill tier: when growth passes the device budget the store spills
   its codes to the host, and the index turns ``scan_only``, frees its
   graph and keeps its tombstones in a host mirror (``_alive_host``);
@@ -239,6 +242,16 @@ class HNSWIndex:
     UPPER_EXACT_MAX = 12288
     #: nodes per diversity-prune chunk of a bulk build (time, not results)
     PRUNE_CHUNK = 8192
+    #: euclidean kNN lists over rows of varied norms gather hubs (rows near
+    #: the origin are near every row: in-degrees up to ~2,000 at 1M rows,
+    #: against ~150 by cosine) and leave thousands of rows no list points
+    #: to; the reference's design (two trees, keep-m-closest reverse edges)
+    #: then misses whole query neighbourhoods. A euclidean RP-tree level 0
+    #: takes more trees and re-prunes each row's list together with its
+    #: best incoming edges by the diversity heuristic, as HNSW prunes the
+    #: list an insertion's reverse edge overflows (PERF.md §6, PR 9)
+    EUCLIDEAN_RP_TREES = 4
+    EUCLIDEAN_REPRUNE = 1
 
     def __init__(
         self,
@@ -283,9 +296,9 @@ class HNSWIndex:
         self.tracker = DirtyTracker()
         #: set by bulk_build: {"ingest_s", "graph_s"} of the last build
         self.last_build_stats: dict | None = None
-        #: the index holds no graph (loaded from a scan-only snapshot, or its
-        #: codes spilled): rows are appended without graph work and every
-        #: search takes the scan
+        #: the index holds no graph (hamming, loaded from a scan-only
+        #: snapshot, or its codes spilled): rows are appended without graph
+        #: work and every search takes the scan
         self.scan_only = False
         #: the codes spilled with the level-0 adjacency kept (force_spill)
         self.graph_on_spill = False
@@ -294,6 +307,8 @@ class HNSWIndex:
         self._alive_host: np.ndarray | None = None
         #: {"waves", "rows", "bytes"} uploaded by the last host-codes search
         self.last_hostcodes_stats: dict | None = None
+        if metric == "hamming":
+            self._drop_graph()
 
     @classmethod
     def from_arrays(cls, arrays: dict, *, metric: str, device, params: HNSWParams | None = None,
@@ -624,9 +639,11 @@ class HNSWIndex:
             )
             return
         kk = min(2 * m_l, self.RP_LEAF - 1)
+        euclidean = store.metric == "euclidean"
         # upper levels are navigation-only: one tree suffices; level 0 with
         # no NN-descent needs the second tree to bridge leaf islands
-        trees = self.RP_TREES if (n_mem > self.RP_LEAF and level == 0) else 1
+        rp_trees = self.EUCLIDEAN_RP_TREES if euclidean else self.RP_TREES
+        trees = rp_trees if (n_mem > self.RP_LEAF and level == 0) else 1
         if level == 0 and self.NN_DESCENT_ROUNDS == 0 and trees < 2:
             trees = 2
         mp = self._bucket(n_mem, 1024)
@@ -660,6 +677,8 @@ class HNSWIndex:
                 store.metric, kind, store.dim_pad, m_l, self.NN_DESCENT_ROUNDS, self.NN_SAMPLE, 256,
                 self.adj0, self.adj0_d, mem_dev, fwd_ids, fwd_d, store.arrays,
             )
+            for _ in range(self.EUCLIDEAN_REPRUNE if euclidean else 0):
+                self._reprune_level0(mem_dev, m_l)
         else:
             slots_pad = np.full(mp, -1, np.int64)
             slots_pad[:n_mem] = self.up_slot_host[members]
@@ -667,6 +686,21 @@ class HNSWIndex:
                 m_l, mem_dev, torch.as_tensor(slots_pad, device=dev), self.up_slot, fwd_ids, fwd_d,
                 self.up_adj[:, level - 1], self.up_d[:, level - 1],
             )
+
+    def _reprune_level0(self, mem_dev: torch.Tensor, m: int) -> None:
+        """Each member's level-0 list together with its m best incoming
+        edges, diversity-pruned back to m (the heuristic the reverse edges
+        of an insertion get in HNSW)."""
+        store = self.store
+        safe = torch.clamp_min(mem_dev, 0)
+        cur_i, cur_d = self.adj0[safe].long(), self.adj0_d[safe]
+        cur_i = torch.where(mem_dev[:, None] >= 0, cur_i, -1)
+        inc_i, inc_d = HK.incoming_edges(self.adj0.shape[0], mem_dev, cur_i, cur_d, m)
+        ids, d = _prune_candidates(
+            store.metric, self._kind(), store.dim_pad, m, self.PRUNE_CHUNK, True, mem_dev,
+            (cur_i, inc_i[safe]), (cur_d, inc_d[safe]), store.arrays,
+        )
+        HK._write_rows(self.adj0, self.adj0_d, mem_dev, ids, d)
 
     def _bulk_level(self, members, candidates, m_l: int, level: int) -> None:
         """Exact-kNN forward edges + reverse merge for one level; the
@@ -1177,7 +1211,8 @@ class HNSWIndex:
                 self._valid(mask),
             )
         q = store.quantize_queries(queries)
-        vals, ids = topk(store.scores_all(q), keep, mask=self._valid(mask)[None, :])
+        vals, ids = topk(store.scores_all(q), keep, mask=self._valid(mask)[None, :],
+                         ties_by_index=store.metric == "hamming")
         if do_rerank:
             re = store.rerank_scores(queries, ids)
             vals = torch.where(vals > NEG_INF / 2, re, NEG_INF)

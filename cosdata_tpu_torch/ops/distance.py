@@ -6,7 +6,10 @@ Quantized kinds score in dequantized space:
     x̂·ŷ = a²·Σ(u_q·u_v) + a·b·(Σu_q + Σu_v) + b²·d_true
 
 Sub-byte code dots come from kernel K2 (ops/kernels/subbyte_scan.py) at
-every size; float kinds are one full-f32 product.
+every size; float kinds are one full-f32 product. Euclidean is
+``|q|² + |v|² − 2·x̂·ŷ`` over the same products; hamming is the XOR
+popcount of the stored bit patterns, ``pc(x) + pc(y) − 2·Σ(x_bits·y_bits)``
+as one exact product of 0/1 bits (:func:`bit_matmul`).
 
 The int8 code contraction is exact on both devices. It runs as an f32
 product of the int8 values (CUDA has no integer ``mm``, an int8 ``torch.mm``
@@ -25,7 +28,7 @@ from __future__ import annotations
 
 import torch
 
-from cosdata_tpu_torch.ops.quantize import QuantizedFloat, QuantizedSubByte, QuantizedU8
+from cosdata_tpu_torch.ops.quantize import QuantizedFloat, QuantizedSubByte, QuantizedU8, unpack_bits_from_u32
 
 _EPS = 1e-30
 #: widest lane slice whose int8 f32 product is exact (128·128·1024 = 2^24)
@@ -70,6 +73,13 @@ def diag_dot(qrows: torch.Tensor, crows: torch.Tensor) -> torch.Tensor:
     return torch.bmm(crows, qrows[:, :, None])[:, :, 0]
 
 
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """f32 square root rounded to nearest, as XLA's and CUDA's ``sqrtf``:
+    the CPU's f32 ``torch.sqrt`` is up to an ulp off, so the root is taken
+    in f64 and rounded once to f32."""
+    return torch.sqrt(x.to(torch.float64)).to(torch.float32)
+
+
 def safe_div(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
     """A zero cosine denominator maps to similarity 0."""
     return torch.where(den > _EPS, num / torch.clamp_min(den, _EPS), 0.0)
@@ -95,7 +105,69 @@ def cosine_u8(q: QuantizedU8, v: QuantizedU8) -> torch.Tensor:
 
 def euclidean_u8(q: QuantizedU8, v: QuantizedU8) -> torch.Tensor:
     d2 = q.mags[:, None] ** 2 + v.mags[None, :] ** 2 - 2.0 * dot_u8(q, v)
-    return torch.sqrt(torch.clamp_min(d2, 0.0))
+    return sqrt_rn(torch.clamp_min(d2, 0.0))
+
+
+def euclidean_float(q: QuantizedFloat, v: QuantizedFloat) -> torch.Tensor:
+    d2 = q.mags[:, None] ** 2 + v.mags[None, :] ** 2 - 2.0 * dot_float(q, v)
+    return sqrt_rn(torch.clamp_min(d2, 0.0))
+
+
+def bit_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """0/1 int8 bits (M, K) x (N, K)^T -> exact int32 (M, N).
+
+    Every partial sum is an integer of at most K < 2^24, so one f32
+    product (TF32 off) is exact at any width. On CUDA, shapes that
+    ``torch._int_mm`` takes (M > 16, K and N multiples of 8) run it on the
+    int8 tensor cores instead; both give the same integers."""
+    m, k = a.shape
+    n = b.shape[0]
+    if a.device.type == "cuda":
+        if m > 16 and k % 8 == 0 and n % 8 == 0:
+            return torch._int_mm(a.contiguous(), b.contiguous().t())
+        _no_tf32()
+    return torch.mm(a.to(torch.float32), b.to(torch.float32).T).to(torch.int32)
+
+
+def hamming_from_bits(q_bits: torch.Tensor, v_bits: torch.Tensor) -> torch.Tensor:
+    """popcount(x XOR y) = pc(x) + pc(y) - 2·Σ(x_bits·y_bits), as f32 (Q, N)."""
+    qc = torch.sum(q_bits, dim=-1, dtype=torch.int32)
+    vc = torch.sum(v_bits, dim=-1, dtype=torch.int32)
+    return (qc[:, None] + vc[None, :] - 2 * bit_matmul(q_bits, v_bits)).to(torch.float32)
+
+
+def _expand_bits(words: torch.Tensor, width: int) -> torch.Tensor:
+    """(N, D) integer words -> (N, D·width) int8 bits, bit j of lane i at
+    i·width + j. Shifts stay in the words' dtype (an arithmetic shift of a
+    signed word still leaves bit j in place 0)."""
+    shifts = torch.arange(width, dtype=words.dtype, device=words.device)
+    return ((words[:, :, None] >> shifts) & 1).to(torch.int8).reshape(words.shape[0], -1)
+
+
+def hamming_u8(q: QuantizedU8, v: QuantizedU8) -> torch.Tensor:
+    """Per-byte XOR popcount of the u8 codes (the code u = centered + 128 is
+    the centered byte with its top bit flipped)."""
+    return hamming_from_bits(_expand_bits(q.data.view(torch.uint8) ^ 0x80, 8),
+                             _expand_bits(v.data.view(torch.uint8) ^ 0x80, 8))
+
+
+def hamming_subbyte(q: QuantizedSubByte, v: QuantizedSubByte, d: int) -> torch.Tensor:
+    """XOR popcount over the bucket codes' bit planes, summed over planes."""
+    out = None
+    for p in range(q.planes.shape[0]):
+        h = hamming_from_bits(unpack_bits_from_u32(q.planes[p], d), unpack_bits_from_u32(v.planes[p], d))
+        out = h if out is None else out + h
+    return out
+
+
+def hamming_f16(q: QuantizedFloat, v: QuantizedFloat) -> torch.Tensor:
+    """XOR popcount of the f16 bit patterns (f32 storage is rounded to f16
+    first, as in the reference)."""
+
+    def bits(s: QuantizedFloat) -> torch.Tensor:
+        return _expand_bits(s.data.to(torch.float16).view(torch.int16), 16)
+
+    return hamming_from_bits(bits(q), bits(v))
 
 
 def _subbyte_scores(metric: str, q: QuantizedSubByte, v: QuantizedSubByte, d: int,
@@ -127,7 +199,8 @@ def cosine_float(q: QuantizedFloat, v: QuantizedFloat) -> torch.Tensor:
 
 
 def score(metric: str, kind: str, q, v, d: int, q_codes: torch.Tensor | None = None) -> torch.Tensor:
-    """Uniform (Q, N) similarity scores, higher is better (euclidean negated).
+    """Uniform (Q, N) similarity scores, higher is better (euclidean and
+    hamming negated).
 
     ``kind`` in {"u8", "subbyte", "float"}; ``q_codes``, for sub-byte
     storage only, is the queries' unpacked codes
@@ -145,14 +218,13 @@ def score(metric: str, kind: str, q, v, d: int, q_codes: torch.Tensor | None = N
     if metric == "euclidean":
         if kind == "u8":
             return -euclidean_u8(q, v)
-        if kind == "subbyte":
-            raise ValueError("euclidean unsupported for sub-byte storage")
-        raise NotImplementedError(
-            f"euclidean scoring of {kind!r} storage is not ported yet "
-            "(ROADMAP queue 1: euclidean and hamming stage 1)"
-        )
+        if kind == "float":
+            return -euclidean_float(q, v)
+        raise ValueError("euclidean unsupported for sub-byte storage")
     if metric == "hamming":
-        raise NotImplementedError(
-            "hamming scoring is not ported yet (ROADMAP queue 1: euclidean and hamming stage 1)"
-        )
+        if kind == "u8":
+            return -hamming_u8(q, v)
+        if kind == "subbyte":
+            return -hamming_subbyte(q, v, d)
+        return -hamming_f16(q, v)
     raise ValueError(f"unknown metric {metric!r}")

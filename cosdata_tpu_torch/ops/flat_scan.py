@@ -2,8 +2,7 @@
 
 Two engines:
 
-- u8 stores take the codes engine with ``select="bins"``
-  (:func:`fused_flat_search_codes`);
+- u8 stores take the codes engine (:func:`fused_flat_search_codes`);
 - sub-byte, f16 and f32 stores take the chunked scan with a running top-k
   (:func:`fused_flat_search`): each chunk of ``chunk`` rows is scored in
   full (sub-byte code dots by kernel K2), masked, cut to its top-k and
@@ -22,7 +21,18 @@ The codes engine's five stages:
    reference's ``approx_max_k(recall_target=0.999)``);
 4. the winning bins expand as contiguous (G·D)-byte block rows of the code
    table and are rescored in u8 space, chunked over queries;
-5. the shortlist is reranked in exact f32 against the raw rows.
+5. the shortlist is reranked in exact f32 against the raw rows (a hamming
+   shortlist by euclidean distance, as in the reference).
+
+Stages 2-4 select in one of the reference's two modes:
+
+- ``bins`` (above): one (B, cap/G) table of bin maxima for the whole store;
+- ``approx``, taken where that table would pass ``MAX_BIN_TABLE``
+  elements and always for hamming (which has no bin kernel): a running
+  (B, k_fetch) top-k merged over ``CODES_CHUNK``-row slices of the store,
+  each slice cut to its exact top-k by :func:`codes_chunk_topk`. The
+  reference's per-chunk ``approx_max_k`` is exact on XLA:CPU, so both
+  modes answer the same wherever scores are untied.
 
 A store whose codes spilled to the host tier takes
 :func:`streamed_flat_topk`: its codes stream to the device in
@@ -42,9 +52,13 @@ from cosdata_tpu_torch.ops.storage import cos_or_dot, exact_scores, quantize_bat
 from cosdata_tpu_torch.ops.storage import rerank as rerank_raw
 from cosdata_tpu_torch.ops.topk import NEG_INF, lax_top_k
 
-#: the bins table's size limit (elements); past it the reference falls back
-#: to its per-chunk "approx" engine, which is not ported
+#: the bins table's size limit (elements); past it the scan takes the
+#: per-chunk "approx" mode, as the reference's does
 MAX_BIN_TABLE = 1 << 28
+#: store rows per slice of the approx mode and of the streamed scan
+CODES_CHUNK = 1 << 16
+#: rows per bin of K1 in both (one warp of the kernel)
+CHUNK_GROUP = 32
 #: bytes of the f32 candidate block that the expansion rescoring may hold
 EXPAND_BYTES = 1 << 30
 
@@ -70,23 +84,22 @@ def fused_flat_search_codes(
     q_re: torch.Tensor | None,  # (B, d_pad) exact queries for the rerank
     valid: torch.Tensor,  # (cap,) bool
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Returns (ids (B, k), vals (B, k)); ids are -1 where nothing was found."""
+    """Returns (ids (B, k), vals (B, k)); ids are -1 where nothing was found.
+    Selects in the ``bins`` mode, or in the ``approx`` mode for hamming and
+    where the bin table would pass ``MAX_BIN_TABLE`` (module doc)."""
     b = q.data.shape[0]
     capacity = store.data.shape[0]
-    if b * (capacity // group) > MAX_BIN_TABLE:
-        raise NotImplementedError(
-            f"a ({b}, {capacity // group}) bin table exceeds {MAX_BIN_TABLE} elements; "
-            "the per-chunk select mode for it is not ported yet "
-            "(ROADMAP queue 1: the approx select mode)"
-        )
-    # stage 2: K1
-    bins = u8_bin_max_from_store(metric, group, q, store, valid, d_pad)
-    # stage 3: one exact selection over the maxima
-    k_bins = min(k_bins, capacity // group)
-    bin_s, bin_ids = torch.topk(bins, k_bins, dim=1)
-    del bins
-    # stage 4: contiguous block expansion + u8 rescore
-    vals, ids = expand_bins(metric, d_pad, group, k_fetch, q, store, valid, bin_s, bin_ids)
+    if metric == "hamming" or b * (capacity // group) > MAX_BIN_TABLE:
+        vals, ids = approx_topk(metric, d_pad, k_fetch, q, store, valid)
+    else:
+        # stage 2: K1
+        bins = u8_bin_max_from_store(metric, group, q, store, valid, d_pad)
+        # stage 3: one exact selection over the maxima
+        k_bins = min(k_bins, capacity // group)
+        bin_s, bin_ids = torch.topk(bins, k_bins, dim=1)
+        del bins
+        # stage 4: contiguous block expansion + u8 rescore
+        vals, ids = expand_bins(metric, d_pad, group, k_fetch, q, store, valid, bin_s, bin_ids)
     if rerank:
         # stage 5, fused: exact rerank with the exact (f16-rounded) queries
         ids, vals = exact_rerank_sorted(metric, d_true, d_pad, k, q_re, raw, ids, vals)
@@ -128,6 +141,45 @@ def expand_bins(metric: str, d_pad: int, group: int, k_fetch: int, q: QuantizedU
         rows = (sel[:, :, None] * group + offs).view(e - s, p_total)
         vals[s:e], ids[s:e] = _topk_take(sc, kf, rows)
     return vals, ids
+
+
+def codes_chunk_topk(metric: str, d_pad: int, k: int, q: QuantizedU8, chunk: QuantizedU8,
+                     valid: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The exact top-k (scores, rows) of one u8 chunk on the device.
+
+    Cosine, dot and euclidean run K1 over the chunk (``CHUNK_GROUP``-row
+    bins), an exact top-k of its bins and the expansion and u8 rescore of
+    their rows: each of the chunk's top-k rows bounds its own bin's
+    maximum, so at most k-1 bins outrank it and the chunk's top-k survives
+    the bin cut. Hamming scores the whole chunk (``distance.score``) and
+    selects with ``lax_top_k``, the reference's plain merge."""
+    rows = chunk.data.shape[0]
+    if metric == "hamming":
+        scores = torch.where(valid[None, :], D.score(metric, "u8", q, chunk, d_pad), NEG_INF)
+        return lax_top_k(scores, min(k, rows))
+    bins = u8_bin_max_from_store(metric, CHUNK_GROUP, q, chunk, valid, d_pad)
+    bin_s, bin_ids = torch.topk(bins, min(k, rows // CHUNK_GROUP), dim=1)
+    del bins
+    return expand_bins(metric, d_pad, CHUNK_GROUP, k, q, chunk, valid, bin_s, bin_ids)
+
+
+def approx_topk(metric: str, d_pad: int, k_fetch: int, q: QuantizedU8, store: QuantizedU8,
+                valid: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The approx mode's stages 2-4 (the reference's ``abody``): each
+    ``CODES_CHUNK``-row slice of a resident store is cut to its top-k by
+    :func:`codes_chunk_topk` and merged into a running (B, k_fetch) top-k,
+    ties to the earlier entry. Returns (vals, ids), ids -1 where nothing
+    was found."""
+    b, capacity = q.data.shape[0], store.data.shape[0]
+    top_s = torch.full((b, k_fetch), NEG_INF, dtype=torch.float32, device=valid.device)
+    top_i = torch.full((b, k_fetch), -1, dtype=torch.int64, device=valid.device)
+    for start in range(0, capacity, CODES_CHUNK):
+        rows = min(CODES_CHUNK, capacity - start)
+        chunk = _slice_store(store, "u8", start, rows)
+        c_s, c_i = codes_chunk_topk(metric, d_pad, k_fetch, q, chunk, valid[start : start + rows])
+        top_s, pos = lax_top_k(torch.cat([top_s, c_s], dim=1), k_fetch)
+        top_i = torch.gather(torch.cat([top_i, c_i + start], dim=1), 1, pos)
+    return top_s, torch.where(top_s > NEG_INF / 2, top_i, -1)
 
 
 def fused_flat_search_codes_f16q(
@@ -194,7 +246,7 @@ def flat_scan_topk(metric: str, kind: str, d: int, k: int, chunk: int, q, store,
     b = q.mags.shape[0]
     top_s = torch.full((b, k), NEG_INF, dtype=torch.float32, device=valid.device)
     top_i = torch.full((b, k), -1, dtype=torch.int64, device=valid.device)
-    select = lax_top_k if ref_select else (lambda s, kk: torch.topk(s, kk, dim=1))
+    select = lax_top_k if ref_select or metric == "hamming" else (lambda s, kk: torch.topk(s, kk, dim=1))
     # sub-byte queries are unpacked once, for every chunk's K2 product
     q_codes = unpack_query_codes(q.planes) if kind == "subbyte" else None
     for start in range(0, capacity, chunk):
@@ -244,9 +296,7 @@ def fused_flat_search(
 
 #: rows per streamed chunk of a spilled store (x dim_pad bytes of u8 codes
 #: per copy)
-STREAM_CHUNK = 1 << 16
-#: rows per bin of K1 on a streamed chunk (one warp of the kernel)
-STREAM_GROUP = 32
+STREAM_CHUNK = CODES_CHUNK
 
 
 def _stream_chunks(store, stats: dict):
@@ -325,12 +375,10 @@ def streamed_flat_topk(metric: str, store, queries, k_fetch: int, valid: torch.T
     chunk by chunk (:func:`_stream_chunks`) into a running (B, k) top-k,
     k = min(k_fetch, capacity).
 
-    - u8 chunks run K1 over the chunk (contiguous ``STREAM_GROUP``-row
-      bins), an exact top-k of its bins, and the expansion and u8 rescore
-      of their rows while the chunk is on the device (the reference's
-      ``_streamed_chunk_merge_codes``): each of the chunk's top-k rows
-      bounds its own bin's maximum, so at most k-1 bins outrank it and the
-      chunk's top-k survives the bin cut; the answers are the plain merge's.
+    - u8 chunks take :func:`codes_chunk_topk` while the chunk is on the
+      device: K1 with its bins expanded and rescored (the reference's
+      ``_streamed_chunk_merge_codes``, whose answers are the plain
+      merge's), or for hamming the plain merge (``_streamed_chunk_merge``).
     - sub-byte chunks run K2 against the query codes, unpacked once per batch.
 
     ``valid`` is a (capacity,) bool tensor on the device (rows, tombstones
@@ -351,10 +399,7 @@ def streamed_flat_topk(metric: str, store, queries, k_fetch: int, valid: torch.T
     for base, rows, chunk in _stream_chunks(store, stats):
         valid_c = valid[base : base + rows]
         if kind == "u8":
-            bins = u8_bin_max_from_store(metric, STREAM_GROUP, q, chunk, valid_c, d_pad)
-            bin_s, bin_ids = torch.topk(bins, min(k, rows // STREAM_GROUP), dim=1)
-            del bins
-            c_s, c_i = expand_bins(metric, d_pad, STREAM_GROUP, k, q, chunk, valid_c, bin_s, bin_ids)
+            c_s, c_i = codes_chunk_topk(metric, d_pad, k, q, chunk, valid_c)
         else:
             # sub-byte scores tie often: equal scores keep the lower row, as
             # the reference's selections do, so both keep the same shortlist

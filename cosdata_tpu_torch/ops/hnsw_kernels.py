@@ -26,7 +26,8 @@ rows of -1 (padding) are filtered out before every write (the reference
 maps them past the table's end and drops them; a torch index of -1 would
 write the last row). All code products are exact (``ops/distance.py``);
 the reference's grouped GEMMs exist only to reach the TPU's matrix unit.
-Euclidean scoring is not ported.
+Hamming has no graph scoring (an index of it is scan-only), as in the
+reference.
 
 The spill tier's graph engine splits a beam wave in two around the host:
 ``beam_wave_select`` picks the wave's fresh candidate ids on the device,
@@ -45,8 +46,6 @@ import torch
 from cosdata_tpu_torch.ops import distance as D
 from cosdata_tpu_torch.ops.storage import gather_queries, score_table, scores_gathered, take_rows, word_major_rows
 from cosdata_tpu_torch.ops.topk import NEG_INF, lax_top_k, unique_mask_ids
-
-_EUCLIDEAN = "euclidean graph scoring is not ported yet (ROADMAP queue 1: euclidean and hamming stage 1)"
 
 #: beam waves between two host checks for an open frontier
 FRONTIER_CHECK = 4
@@ -294,14 +293,18 @@ def _affine_dot(kind, d, store, cc, s1, s2):
     return store.a * store.a * code_dot + store.a * store.b * (u1 + u2) + store.b * store.b * store.dtrue
 
 
-def _metric(metric, dot, den):
+def _metric(metric, dot, m1, m2):
+    """Similarity from dot products and the two sides' magnitudes, already
+    broadcast against each other."""
     if metric == "dot":
         return dot
     if metric == "cosine":
-        return D.safe_div(dot, den)
-    if metric == "euclidean":
-        raise NotImplementedError(_EUCLIDEAN)
-    raise ValueError(f"graph kernels do not support metric {metric!r}")
+        return D.safe_div(dot, m1 * m2)
+    if metric != "euclidean":
+        # hamming has no dot formulation; its index is scan-only
+        raise ValueError(f"graph kernels do not support metric {metric!r}")
+    d2 = m1**2 + m2**2 - 2.0 * dot
+    return -D.sqrt_rn(torch.clamp_min(d2, 0.0))
 
 
 def _block_scores(metric, kind, d, store, g1, s1, m1, g2, s2, m2):
@@ -314,7 +317,7 @@ def _block_scores(metric, kind, d, store, g1, s1, m1, g2, s2, m2):
         if g1.device.type == "cuda":
             D._no_tf32()
         dot = torch.matmul(g1, g2.transpose(-1, -2))
-    return _metric(metric, dot, m1[..., :, None] * m2[..., None, :])
+    return _metric(metric, dot, m1[..., :, None], m2[..., None, :])
 
 
 def pairwise_scores(metric: str, kind: str, d: int, ids: torch.Tensor, store, chunk: int = 256):
@@ -510,12 +513,10 @@ def _asc_key(x: torch.Tensor) -> torch.Tensor:
     return torch.where(bits >= 0, bits + (1 << 31), (1 << 31) - 1 - (bits & 0x7FFFFFFF))
 
 
-def _reverse_edges_body(adj, dist, src, fwd_rows, fwd_d, m, g_cap, chunk=65536):
-    """Merge the reverse of the edges src -> fwd_rows into the tables, in
-    place: group incoming edges by target with one sort by (target,
-    -score), keep each target's g_cap best, then keep-the-m-closest merge
-    every row (in row chunks of ``chunk``). Returns the tables."""
-    rows_n = adj.shape[0]
+def incoming_edges(rows_n: int, src, fwd_rows, fwd_d, g_cap: int):
+    """The ``g_cap`` best incoming edges of every row among the edges
+    src -> fwd_rows (scores ``fwd_d``), grouped by target with one sort by
+    (target, -score): (ids (rows_n, g_cap), scores), -1 / NEG_INF padded."""
     w, mf = fwd_rows.shape
     e = w * mf
     tgt = fwd_rows.reshape(e).long()
@@ -525,16 +526,26 @@ def _reverse_edges_body(adj, dist, src, fwd_rows, fwd_d, m, g_cap, chunk=65536):
     tgt_k = torch.where(ok, tgt, rows_n)  # invalid edges sort last
     order = torch.sort(tgt_k * (1 << 32) + _asc_key(-d_), stable=True).indices
     tgt_s, d_s, s_s = tgt_k[order], d_[order], s_[order]
-    pos = torch.arange(e, device=adj.device)
-    first = torch.ones(e, dtype=torch.bool, device=adj.device)
+    pos = torch.arange(e, device=fwd_rows.device)
+    first = torch.ones(e, dtype=torch.bool, device=fwd_rows.device)
     first[1:] = tgt_s[1:] != tgt_s[:-1]
     seg_start = torch.cummax(torch.where(first, pos, 0), 0).values
     rank = pos - seg_start  # rank within the target (best = 0)
     keep = (rank < g_cap) & (tgt_s < rows_n)
-    inc_ids = torch.full((rows_n, g_cap), -1, dtype=torch.int64, device=adj.device)
-    inc_d = torch.full((rows_n, g_cap), NEG_INF, dtype=torch.float32, device=adj.device)
+    inc_ids = torch.full((rows_n, g_cap), -1, dtype=torch.int64, device=fwd_rows.device)
+    inc_d = torch.full((rows_n, g_cap), NEG_INF, dtype=torch.float32, device=fwd_rows.device)
     inc_ids[tgt_s[keep], rank[keep]] = s_s[keep]
     inc_d[tgt_s[keep], rank[keep]] = d_s[keep]
+    return inc_ids, inc_d
+
+
+def _reverse_edges_body(adj, dist, src, fwd_rows, fwd_d, m, g_cap, chunk=65536):
+    """Merge the reverse of the edges src -> fwd_rows into the tables, in
+    place: each target's g_cap best incoming edges (:func:`incoming_edges`),
+    then a keep-the-m-closest merge of every row (in row chunks of
+    ``chunk``). Returns the tables."""
+    rows_n = adj.shape[0]
+    inc_ids, inc_d = incoming_edges(rows_n, src, fwd_rows, fwd_d, g_cap)
     for r0 in range(0, rows_n, chunk):
         sl = slice(r0, r0 + chunk)
         cur_i, ii = adj[sl].long(), inc_ids[sl]
@@ -555,7 +566,7 @@ def _grouped_scores(metric, kind, store, gq, sq, mq, gc, sc_, mc):
         dot = _affine_dot(kind, dd, store, diag, sq[:, None], sc_)
     else:
         dot = D.diag_dot(gq, gc)
-    return _metric(metric, dot, mq[:, None] * mc)
+    return _metric(metric, dot, mq[:, None], mc)
 
 
 def _nn_descent_body(metric, kind, d, m, sample, node_chunk, node_ids, adj, dist, store):

@@ -554,7 +554,7 @@ def cos_or_dot(metric: str, dot, qmags, cmags):
         return D.safe_div(dot, qmags[:, None] * cmags)
     if metric == "euclidean":
         d2 = qmags[:, None] ** 2 + cmags**2 - 2.0 * dot
-        return -torch.sqrt(torch.clamp_min(d2, 0.0))
+        return -D.sqrt_rn(torch.clamp_min(d2, 0.0))
     raise ValueError(metric)
 
 

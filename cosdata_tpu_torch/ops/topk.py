@@ -13,14 +13,18 @@ NEG_INF = -3.0e38
 
 
 def topk(
-    scores: torch.Tensor, k: int, mask: torch.Tensor | None = None
+    scores: torch.Tensor, k: int, mask: torch.Tensor | None = None, ties_by_index: bool = False
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-k along the last axis. Returns (values, indices), sorted desc.
 
     ``mask`` (broadcastable bool): False entries are excluded (score -> NEG_INF).
+    ``ties_by_index`` orders equal scores by index, as ``lax.top_k``
+    (:func:`lax_top_k`), for scores that tie often (hamming distances).
     """
     if mask is not None:
         scores = torch.where(mask, scores, NEG_INF)
+    if ties_by_index:
+        return lax_top_k(scores, k)
     return torch.topk(scores, k, dim=-1)
 
 

@@ -53,19 +53,23 @@ def device_ms(fn, reps: int) -> float:
 
 
 #: published H100 SXM peaks (NVIDIA data sheet, dense): int8 tensor-core
-#: operations per second and device-memory bytes per second
-INT8_OPS_PER_S, HBM_BYTES_PER_S = 1979e12, 3.35e12
+#: operations per second, float32 operations per second outside the tensor
+#: cores and device-memory bytes per second
+INT8_OPS_PER_S, F32_OPS_PER_S, HBM_BYTES_PER_S = 1979e12, 67e12, 3.35e12
 
 
-def bound(ops: float, nbytes: float) -> tuple[float, str]:
+def bound(ops: float, nbytes: float, f32_ops: float = 0.0) -> tuple[float, str]:
     """The least time (ms) the card could take for ``ops`` int8 operations
-    moving ``nbytes``: the larger of the two, and which it is."""
-    t_ops, t_bytes = ops / INT8_OPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    and ``f32_ops`` float32 operations moving ``nbytes``: the largest of the
+    three times, and whether operations or bytes set it."""
+    t_ops = max(ops / INT8_OPS_PER_S, f32_ops / F32_OPS_PER_S) * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def clustered(n: int, nq: int, d: int, gen: torch.Generator, dev):
-    """bench.py's gen_clustered formula: n//100 unit centres, noise 0.5/sqrt(d), unit rows."""
+def clustered(n: int, nq: int, d: int, gen: torch.Generator, dev, *more: int):
+    """bench.py's gen_clustered formula: n//100 unit centres, noise 0.5/sqrt(d), unit rows:
+    n corpus rows, nq queries, then one more batch of queries per entry of ``more``."""
     n_clusters = max(n // 100, 16)
     centers = torch.randn((n_clusters, d), generator=gen, device=dev)
     centers /= torch.linalg.vector_norm(centers, dim=1, keepdim=True)
@@ -76,4 +80,4 @@ def clustered(n: int, nq: int, d: int, gen: torch.Generator, dev):
         x += centers[torch.randint(0, n_clusters, (m,), generator=gen, device=dev)]
         return x / torch.linalg.vector_norm(x, dim=1, keepdim=True)
 
-    return rows(n), rows(nq)
+    return (rows(n), rows(nq), *(rows(m) for m in more))

@@ -141,13 +141,20 @@ def test_f16q_then_exact_rerank_sorted(case):
 
 
 def test_bin_table_limit(case, monkeypatch):
+    """Above the bin table's limit the scan answers in the approx mode, as
+    the reference's falls back to it: its ids on untied slots."""
     c = case
     monkeypatch.setattr(TF, "MAX_BIN_TABLE", B * (CAP // GROUP) - 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TF.fused_flat_search_codes(
-            "cosine", D_TRUE, D_PAD, K_BINS, GROUP, K_FETCH, K, False,
-            _tq(c["q"]), _tq(c["store"]), None, None, _t(c["valid"]),
-        )
+    monkeypatch.setattr(TF, "CODES_CHUNK", CHUNK)
+    j_ids, j_vals = JF.fused_flat_search_codes(
+        "cosine", D_TRUE, D_PAD, K_BINS, GROUP, K_FETCH, K, CHUNK, False,
+        c["q"], c["store"], c["q"].data, c["q"].mags, jnp.asarray(c["valid"]), select="approx",
+    )
+    t_ids, t_vals = TF.fused_flat_search_codes(
+        "cosine", D_TRUE, D_PAD, K_BINS, GROUP, K_FETCH, K, False,
+        _tq(c["q"]), _tq(c["store"]), None, None, _t(c["valid"]),
+    )
+    _compare(t_ids, t_vals, j_ids, j_vals)
 
 
 @pytest.mark.parametrize("metric", ["cosine", "dot", "euclidean"])

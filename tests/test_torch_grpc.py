@@ -330,3 +330,104 @@ def test_graph_search_over_grpc_equals_direct_calls(tmp_path):
             server.stop(0)
     finally:
         tctx.close()
+
+
+# ---------------------------------------------------------------- euclidean and hamming collections
+
+METRIC_STEPS = ["create_collection", "create_index", "upsert", "txn_delete", "commit", "find_self", "find_deleted",
+                "find_query", "get_vector"]
+
+
+def _metric_script(ctx, channel, metric) -> dict:
+    out = {}
+
+    def call(step, service, method, req, resp_cls, token=None):
+        try:
+            resp = _call(channel, service, method, req, resp_cls, token)
+        except grpc.RpcError as e:
+            out[step] = (e.code().name, e.details())
+            return None
+        out[step] = ("OK", MessageToDict(resp, preserving_proto_field_name=True))
+        return resp
+
+    rng = np.random.default_rng(1)
+    x = rng.normal(size=(N, DIM)).astype(np.float32)
+    x *= (rng.uniform(0.5, 1.5, N) / np.linalg.norm(x, axis=1))[:, None].astype(np.float32)
+    tok = _call(channel, "AuthService", "CreateSession",
+                pb.CreateSessionRequest(username="admin", password=ADMIN), pb.CreateSessionResponse).access_token
+    name = f"m_{metric}"
+    call("create_collection", "CollectionsService", "CreateCollection", pb.CreateCollectionRequest(
+        name=name, dense_vector=pb.DenseVectorOptions(enabled=True, dimension=DIM),
+    ), pb.CreateCollectionResponse, tok)
+    call("create_index", "IndexesService", "CreateDenseIndex", pb.CreateDenseIndexRequest(
+        collection_id=name, distance_metric_type=metric, auto=pb.AutoQuantization(sample_threshold=64),
+    ), empty_pb2.Empty, tok)
+    txn = _call(channel, "TransactionsService", "CreateTransaction",
+                pb.CreateTransactionRequest(collection_id=name), pb.CreateTransactionResponse, tok).transaction_id
+    req = pb.UpsertVectorsRequest(collection_id=name, transaction_id=txn)
+    for i in range(N):
+        req.vectors.add(id=f"v{i}", dense_values=x[i].tolist())
+    call("upsert", "TransactionsService", "UpsertVectors", req, empty_pb2.Empty, tok)
+    call("txn_delete", "TransactionsService", "DeleteVectorInTransaction",
+         pb.DeleteVectorInTransactionRequest(collection_id=name, transaction_id=txn, vector_id="v4"),
+         empty_pb2.Empty, tok)
+    call("commit", "TransactionsService", "CommitTransaction",
+         pb.CommitTransactionRequest(collection_id=name, transaction_id=txn), empty_pb2.Empty, tok)
+    ctx.indexing.wait_idle()
+    for step, v in (("self", x[9]), ("deleted", x[4]), ("query", -x[11] + x[12])):
+        call(f"find_{step}", "VectorsService", "FindSimilarVectors", pb.FindSimilarVectorsRequest(
+            collection_id=name, dense=pb.FindSimilarDenseVectorsQuery(vector=v.tolist(), top_k=K),
+        ), pb.FindSimilarVectorsResponse, tok)
+    call("get_vector", "VectorsService", "GetVector",
+         pb.GetVectorRequest(collection_id=name, vector_id="v9"), pb.VectorResponse, tok)
+    return out
+
+
+def _metric_transcript(ctx, build_server, sessions, metric):
+    server = build_server(ctx, sessions, address="127.0.0.1:0")
+    port = server.add_insecure_port("127.0.0.1:0")
+    server.start()
+    channel = grpc.insecure_channel(f"127.0.0.1:{port}")
+    try:
+        return _metric_script(ctx, channel, metric)
+    finally:
+        channel.close()
+        server.stop(0)
+
+
+@pytest.fixture(scope="module", params=["euclidean", "hamming"])
+def metric_transcripts(request, tmp_path_factory):
+    metric = request.param
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(JS, "_WIRE_BW_MBPS", 1e9)
+        jctx = JAppContext(j_load_config(data_path=str(tmp_path_factory.mktemp(f"ref_{metric}"))), admin_key=ADMIN)
+        ref = _metric_transcript(jctx, j_build_server, JSessions(ADMIN), metric)
+    tctx = TAppContext(t_load_config(data_path=str(tmp_path_factory.mktemp(f"port_{metric}"))), admin_key=ADMIN,
+                       device="cpu")
+    try:
+        port = _metric_transcript(tctx, t_build_server, TSessions(ADMIN), metric)
+    finally:
+        tctx.close()
+    return metric, ref, port
+
+
+@pytest.mark.parametrize("step", METRIC_STEPS)
+def test_metric_call_matches_reference(metric_transcripts, step):
+    """A euclidean and a hamming collection over gRPC answer as the
+    reference's: negated distances within rtol 1e-5, ids where untied,
+    the deleted vector absent."""
+    metric, ref, port = metric_transcripts
+    (j_code, j_body), (t_code, t_body) = ref[step], port[step]
+    assert t_code == j_code, (t_body, j_body)
+    if isinstance(j_body, dict) and "matches" in j_body:
+        jm, tm = j_body["matches"], t_body["matches"]
+        assert len(tm) == len(jm) == K
+        js = [m["score"] for m in jm]
+        np.testing.assert_allclose([m["score"] for m in tm], js, rtol=1e-5, atol=1e-6)
+        u = _untied(js)
+        assert [m["id"] for m, ok in zip(tm, u) if ok] == [m["id"] for m, ok in zip(jm, u) if ok]
+        assert all(m["score"] <= 0 for m in tm) and "v4" not in [m["id"] for m in tm]
+    else:
+        assert t_body == j_body
+    if step == "find_self":
+        assert t_body["matches"][0]["id"] == "v9"

@@ -1,7 +1,9 @@
 """Port parity of the HNSW index (cosdata_tpu_torch/indexes/hnsw.py) against
 the reference's HNSWIndex at small sizes: 2,000 x 64 random unit rows (as
 the reference's own tests draw them), the reference's test parameters
-(tests/test_hnsw.py's SMALL), u8, quaternary, f16 and f32 stores.
+(tests/test_hnsw.py's SMALL), u8, quaternary, f16 and f32 stores by
+cosine, and u8 and f32 stores by euclidean distance (on unit rows it ranks
+as cosine does, so the same brute-force truth serves both).
 
 What is held, per kind:
 
@@ -33,7 +35,11 @@ torch.set_num_threads(1)
 
 D, N, NQ, K = 64, 2000, 32, 10
 SMALL = dict(num_layers=4, wave_size=256, ef_construction=64, ef_search=96, max_iters=64, visited_cap=1024)
-KINDS = {"u8": ("u8", 2), "quaternary": ("subbyte", 2), "f16": ("f16", 2), "f32": ("f32", 2)}
+#: name -> (storage kind, resolution, metric)
+KINDS = {
+    "u8": ("u8", 2, "cosine"), "quaternary": ("subbyte", 2, "cosine"), "f16": ("f16", 2, "cosine"),
+    "f32": ("f32", 2, "cosine"), "u8-euclidean": ("u8", 2, "euclidean"), "f32-euclidean": ("f32", 2, "euclidean"),
+}
 RANGE = (-0.3, 0.3)
 
 
@@ -53,11 +59,11 @@ def data():
 
 
 def _pair(name, seed=3):
-    kind, res = KINDS[name]
+    kind, res, metric = KINDS[name]
     params = dict(SMALL)
-    j = JH.HNSWIndex(D, kind=kind, resolution=res, range_=RANGE, params=JH.HNSWParams(**params), seed=seed,
-                     initial_capacity=N, ship_dtype="f32")
-    t = TH.HNSWIndex(D, "cpu", kind=name if kind == "subbyte" else kind, range_=RANGE,
+    j = JH.HNSWIndex(D, metric=metric, kind=kind, resolution=res, range_=RANGE, params=JH.HNSWParams(**params),
+                     seed=seed, initial_capacity=N, ship_dtype="f32")
+    t = TH.HNSWIndex(D, "cpu", metric=metric, kind=name if kind == "subbyte" else kind, range_=RANGE,
                      params=TH.HNSWParams(**params), seed=seed, initial_capacity=N)
     return j, t
 
@@ -118,10 +124,22 @@ def test_levels_match_reference(built):
         _same_state(t, j)
 
 
-def test_exact_bulk_build_matches_reference(built):
+#: edge agreement of the exact-path bulk build with the reference's. The u8
+#: exact path selects on bf16-rounded scores as the reference's shortlist
+#: does; euclidean distances near 1.3 round to steps of 2^-7 there, so
+#: ties are ~4x denser than cosine's, and the reference's approx_max_k
+#: orders ties of long rows in its own sort order, not by index: 0.974 of
+#: the edges agree on this draw, and the graphs' recall is held as well
+BULK_AGREEMENT = {"u8-euclidean": 0.97}
+
+
+def test_exact_bulk_build_matches_reference(data, built):
+    _, q, truth = data
     j, t = built["bulk"]
     assert t.last_build_stats is not None
-    assert _graph_agreement(t, j) >= 0.99
+    assert _graph_agreement(t, j) >= BULK_AGREEMENT.get(built["name"], 0.99)
+    rt, rj = _recall(t.search(q, K)[0], truth), _recall(j.search(q, K)[0], truth)
+    assert rt >= rj - 0.01, (rt, rj)
 
 
 @pytest.mark.parametrize("name", ["u8", "quaternary"])
@@ -173,7 +191,8 @@ def _arrays_of(j) -> dict:
 def test_from_arrays_answers_like_reference(data, built):
     _, q, _ = data
     j, _ = built["bulk"]
-    t = TH.HNSWIndex.from_arrays(_arrays_of(j), metric="cosine", device="cpu", params=TH.HNSWParams(**SMALL))
+    t = TH.HNSWIndex.from_arrays(_arrays_of(j), metric=KINDS[built["name"]][2], device="cpu",
+                                 params=TH.HNSWParams(**SMALL))
     assert (t.store.kind, t.cap) == (j.store.kind, j.cap)
     for ef in (None, 64):
         j_ids, j_sc = j.search(q, K, ef=ef)

@@ -108,6 +108,13 @@ def _scores_close(got, want):
     np.testing.assert_allclose(_n(got), np.asarray(want), rtol=RTOL, atol=ATOL)
 
 
+def _distinct_close(got, want, distinct):
+    """Euclidean scores of distinct rows within the tolerance: a row against
+    itself is the f32 residue of |x|² + |x|² - 2x·x, which depends on the
+    summation order."""
+    np.testing.assert_allclose(_n(got)[distinct], np.asarray(want)[distinct], rtol=RTOL, atol=ATOL)
+
+
 def _ids_agree(got, want, share=0.99):
     got, want = _n(got), np.asarray(want)
     assert got.shape == want.shape
@@ -158,7 +165,7 @@ def test_gather_as_queries(case):
         np.testing.assert_array_equal(g.view(w.dtype) if g.dtype != w.dtype and g.itemsize == w.itemsize else g, w)
 
 
-@pytest.mark.parametrize("metric", ["cosine", "dot"])
+@pytest.mark.parametrize("metric", ["cosine", "dot", "euclidean"])
 def test_scores_gathered(case, metric):
     ids = np.random.default_rng(6).integers(-1, N, size=(B, 70)).astype(np.int32)
     want = JS._scores_gathered(metric, case["kind"], case["dp"], case["jq"], case["j"]._arrays, _j(ids))
@@ -191,7 +198,7 @@ def test_word_major_rows_code_dot(res):
 # ---------------------------------------------------------------- scoring and selection
 
 
-@pytest.mark.parametrize("metric", ["cosine", "dot"])
+@pytest.mark.parametrize("metric", ["cosine", "dot", "euclidean"])
 def test_decode_rows_and_block_scores(case, metric):
     ids = np.random.default_rng(8).integers(0, N, size=(3, 24))
     kind, dp = case["kind"], case["dp"]
@@ -208,7 +215,10 @@ def test_decode_rows_and_block_scores(case, metric):
         np.testing.assert_array_equal(_n(g), w)
     want = JK._block_scores(metric, kind, dp, case["j"]._arrays, *jg, *jg)
     got = TK._block_scores(metric, kind, dp, case["t"].arrays, *tg, *tg)
-    _scores_close(got, want)
+    if metric == "euclidean":
+        _distinct_close(got, want, ids[:, :, None] != ids[:, None, :])
+    else:
+        _scores_close(got, want)
 
 
 def test_pairwise_scores(case):
@@ -657,3 +667,87 @@ def test_spill_graph_engine_not_ported(data):
         ti, ts, te = TK.beam_wave_merge("cosine", t.dim_pad, tq, tc, _tl(slots), tn, ti, ts, te)
         waves += 1
     assert waves >= 3
+
+
+# ---------------------------------------------------------------- euclidean
+
+
+def test_euclidean_pairwise_and_grouped_scores(case):
+    ids = np.random.default_rng(31).integers(-1, N, size=(300, 32)).astype(np.int32)
+    want = JK.pairwise_scores("euclidean", case["kind"], case["dp"], _j(ids), case["j"]._arrays, chunk=128)
+    got = TK.pairwise_scores("euclidean", case["kind"], case["dp"], _tl(ids), case["t"].arrays, chunk=64)
+    safe = np.maximum(ids, 0)
+    _distinct_close(got, want, safe[:, :, None] != safe[:, None, :])
+    rows = np.random.default_rng(32).integers(0, N, 64)
+    cand = np.random.default_rng(33).integers(0, N, size=(64, 20))
+    kind, dp = case["kind"], case["dp"]
+    jq, jc = (JK._decode_rows(kind, dp, case["j"]._arrays, _j(v)) for v in (rows, cand))
+    tq, tc = (TK._decode_rows(kind, dp, case["t"].arrays, _tl(v)) for v in (rows, cand))
+    want = JK._grouped_scores("euclidean", kind, case["j"]._arrays, *jq, *jc)
+    got = TK._grouped_scores("euclidean", kind, case["t"].arrays, *tq, *tc)
+    _distinct_close(got, want, rows[:, None] != cand)
+    with pytest.raises(ValueError, match="hamming"):
+        TK._grouped_scores("hamming", kind, case["t"].arrays, *tq, *tc)
+
+
+def test_euclidean_build_kernels(case, data):
+    """The bulk build's kNN edges, one NN-descent round and an exact upper
+    level, all by euclidean distance."""
+    kind, dp = case["kind"], case["dp"]
+    nodes = np.random.default_rng(34).choice(N, 100, replace=False)
+    valid = np.arange(CAP) < N
+    edges = (
+        lambda: JH._bulk_knn_edges("euclidean", kind, dp, 8, 1024, True, _j(nodes.astype(np.int32)),
+                                   case["j"]._arrays, _j(valid)),
+        lambda: TH._bulk_knn_edges("euclidean", kind, dp, 8, 1024, True, _tl(nodes), case["t"].arrays, _t(valid)),
+    )
+    if kind == "subbyte":  # the exact scan scores by distance.score, which refuses it
+        for fn in edges:
+            with pytest.raises(ValueError, match="euclidean unsupported for sub-byte storage"):
+                fn()
+    else:
+        _row_sets_agree(edges[1]()[0], edges[0]()[0], 0.97)
+    adj, dist = _level0_table(case, data)
+    mem = np.full(2048, -1, np.int32)
+    mem[:N] = np.arange(N)
+    args = ("euclidean", kind, dp, M, 4, 256)
+    want = JK.nn_descent_round(*args, _j(adj), _j(dist), _j(mem), case["j"]._arrays)
+    got = TK.nn_descent_round(*args, _t(adj), _t(dist), _t(mem), case["t"].arrays)
+    _row_sets_agree(got[0], want[0])
+    members, slot = data["members"], data["slot"]
+    mem = np.full(512, -1, np.int32)
+    mem[: len(members)] = members
+    slots = np.full(512, -1, np.int32)
+    slots[: len(members)] = slot[members]
+    adj_l = np.full((256, 8), -1, np.int32)
+    dist_l = np.full((256, 8), -3.0e38, np.float32)
+    want = JK.upper_level_exact("euclidean", kind, dp, 8, True, _j(mem), _j(slots), _j(slot), _j(adj_l),
+                                _j(dist_l), case["j"]._arrays)
+    got = TK.upper_level_exact("euclidean", kind, dp, 8, True, _t(mem), _t(slots), _t(slot), _t(adj_l),
+                               _t(dist_l), case["t"].arrays)
+    _row_sets_agree(got[0], want[0])
+
+
+def test_euclidean_fused_search(case, data):
+    kind, dp = case["kind"], case["dp"]
+    t, j = case["t"], case["j"]
+    up_adj = np.full((256, 2, 8), -1, np.int32)
+    up_adj[: len(data["members"]), 0] = data["up"]
+    alive = np.ones(CAP, bool)
+    alive[[3, 77, 1500]] = False
+    ef, keep, k = 40, 30, 10
+    jq_raw = _j(np.pad(data["q"], ((0, 0), (0, dp - D))))
+    ji, js = JH._fused_search(
+        "euclidean", kind, dp, D, j.resolution, ef, 8, 4, 512, 40, 1, keep, k, True, j.range[0], j.range[1],
+        jq_raw, j._arrays, j._raw, _j(data["adj"]), _j(up_adj), _j(data["slot"]), _j(alive),
+        jnp.int32(data["members"][0]), jnp.asarray([1], jnp.int32),
+    )
+    ti, ts = TH._fused_search(
+        "euclidean", kind, dp, D, t.resolution, ef, 8, 4, 512, 40, keep, k, True, t.range[0], t.range[1],
+        t.ship_queries(data["q"]), t.arrays, t.raw, _t(data["adj"]), _t(up_adj), _t(data["slot"]), _t(alive),
+        int(data["members"][0]), [1],
+    )
+    _ids_agree(ti, ji)
+    same = _n(ti) == np.asarray(ji)
+    np.testing.assert_allclose(_n(ts)[same], np.asarray(js)[same], rtol=RTOL, atol=ATOL)
+    assert (_n(ts) <= 0).all() and not np.isin(_n(ti), [3, 77, 1500]).any()

@@ -255,9 +255,9 @@ def test_semantics(data):
 
 def test_routes_not_ported_raise(data, handles):
     """Above the serving limits the handle answers by its graph (built by
-    insertion waves as the rows came in); the options not ported yet
-    raise, naming their ROADMAP item, and raw_storage "host" and "disk"
-    (the spill tiers) are accepted."""
+    insertion waves as the rows came in); sharding, not ported yet,
+    raises naming its ROADMAP item; euclidean and hamming handles and
+    raw_storage "host" and "disk" (the spill tiers) are accepted."""
     x, q, truth = data
     port, _ = handles
     old = port.flat_serve_threshold
@@ -276,15 +276,20 @@ def test_routes_not_ported_raise(data, handles):
         port.graph_filter_min = old_min
     finally:
         port.flat_serve_threshold = old
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TC.DenseIndexHandle(DIM, "cpu", shards=2)
+    # euclidean and hamming are ported: each handle serves a self-query
     for kwargs in (
         {"distance_metric": "euclidean"},
         {"distance_metric": "hamming"},
         {"distance_metric": "euclidean", "quantization": {"type": "scalar", "data_type": "f32"}},
         {"distance_metric": "hamming", "quantization": {"type": "scalar", "data_type": "binary"}},
-        {"shards": 2},
     ):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TC.DenseIndexHandle(DIM, "cpu", **kwargs)
+        h = TC.DenseIndexHandle(DIM, "cpu", **kwargs)
+        h.add_batch(list(range(300)), x[:300])
+        ids, _ = h.search(x[[5, 250]], K)
+        assert ids[:, 0].tolist() == [5, 250], kwargs
+        assert h.index.scan_only == (h.metric == "hamming")
     # the spill tiers are ported: host and disk raw rows are accepted
     for tier in ("host", "disk"):
         h = TC.DenseIndexHandle(DIM, "cpu", raw_storage=tier, quantization={"type": "scalar", "data_type": "u8"})

@@ -435,3 +435,110 @@ def test_fresh_index_above_threshold_needs_the_graph():
     d.index.scan_only = True
     ids, _ = d.search(q, K)
     np.testing.assert_array_equal(ids, truth_live)
+
+
+# ---------------------------------------------------------------- euclidean and hamming
+
+METRICS = ("euclidean", "hamming")
+DEAD = {41, *range(3, 90, 3)}
+
+
+def _metric_rows():
+    """gen_clustered rows scaled to norms 0.5-1.5, so euclidean ranks
+    unlike cosine."""
+    x, q = gen_clustered(N + 10, NQ, seed=4)
+    return (x * np.random.default_rng(5).uniform(0.5, 1.5, (N + 10, 1))).astype(np.float32), q
+
+
+def _metric_answers(ctx, q):
+    out = {}
+    for metric in METRICS:
+        coll = ctx.get_collection(f"m_{metric}")
+        out[metric] = {"plain": coll.search_dense(q, K), "filtered": coll.search_dense(q, K, filter_dto=RED),
+                       "deep_plain": coll.search_dense(q, 2 * K),
+                       "deep_filtered": coll.search_dense(q, 2 * K, filter_dto=RED),
+                       "vectors": [coll.get_vector(i) for i in PROBE_IDS]}
+    return out
+
+
+@pytest.fixture(scope="module")
+def metric_runs(tmp_path_factory):
+    """Euclidean and hamming collections written by the reference (a
+    transaction with deletes, streamed upserts and a delete), opened by the
+    port, snapshotted by it and reopened by each package."""
+    data_dir = tmp_path_factory.mktemp("metrics")
+    x, q = _metric_rows()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(JS, "_WIRE_BW_MBPS", 1e9)
+        ctx = JAppContext(j_load_config(data_path=str(data_dir)), admin_key=ADMIN)
+        for metric in METRICS:
+            coll = ctx.create_collection({"name": f"m_{metric}", "dense_vector": {"enabled": True, "dimension": DIM},
+                                          "metadata_schema": SCHEMA})
+            coll.create_dense_index(distance_metric=metric, quantization={"type": "auto", "sample_threshold": 100})
+            txn = coll.create_transaction()
+            coll.txn_upsert(txn.txn_id, [_vec(i, x) for i in range(N)], True)
+            for i in range(3, 90, 3):
+                coll.txn_delete(txn.txn_id, i)
+            coll.index_version(coll.commit_transaction(txn.txn_id), txn)
+            coll.stream_upsert([_vec(i, x) for i in range(N, N + 10)])
+            coll.stream_delete(41)
+        ref = _metric_answers(ctx, q)
+        scan_only = {m: ctx.get_collection(f"m_{m}").dense.index.scan_only for m in METRICS}
+        ctx.indexing.stop()
+        ctx.meta.close()
+        port_ctx = TAppContext(t_load_config(data_path=str(data_dir)), admin_key=ADMIN, device="cpu")
+        port = _metric_answers(port_ctx, q)
+        port_scan_only = {m: port_ctx.get_collection(f"m_{m}").dense.index.scan_only for m in METRICS}
+        port_ctx.close()
+        restart_ctx = TAppContext(t_load_config(data_path=str(data_dir)), admin_key=ADMIN, device="cpu")
+        restart = _metric_answers(restart_ctx, q)
+        restart_ctx.close()
+        back_ctx = JAppContext(j_load_config(data_path=str(data_dir)), admin_key=ADMIN)
+        back = _metric_answers(back_ctx, q)
+        back_ctx.indexing.stop()
+        back_ctx.meta.close()
+    return {"ref": ref, "port": port, "restart": restart, "back": back,
+            "scan_only": (scan_only, port_scan_only)}
+
+
+@pytest.mark.parametrize("metric", METRICS)
+def test_metric_snapshot_opens_in_port(metric_runs, metric):
+    """The reference's snapshot (and WAL) of a euclidean collection, with its
+    graph, and of a hamming collection, scan-only in both packages, answer
+    in the port as the reference answered before closing."""
+    ref, port = metric_runs["ref"][metric], metric_runs["port"][metric]
+    scan_only, port_scan_only = metric_runs["scan_only"]
+    assert scan_only[metric] == port_scan_only[metric] == (metric == "hamming")
+    for mode in ("plain", "filtered"):
+        _same_results(port[mode], ref[mode])
+        assert not DEAD & {r["id"] for row in port[mode] for r in row}
+    assert port["vectors"] == ref["vectors"]
+
+
+@pytest.mark.parametrize("metric", METRICS)
+def test_metric_snapshot_round_trip(metric_runs, metric):
+    """The port's own snapshot answers identically after a restart, and a
+    deleted row never comes back."""
+    port, restart = metric_runs["port"][metric], metric_runs["restart"][metric]
+    assert restart == port
+    assert all(len(row) == K and not DEAD & {r["id"] for r in row} for row in restart["plain"])
+
+
+@pytest.mark.parametrize("metric", METRICS)
+def test_reference_loads_port_metric_snapshot(metric_runs, metric):
+    """The reference opens the port's snapshot. Euclidean answers as the
+    port does; the hamming snapshot is scan-only and the reference's loader
+    drops its tombstones (ROADMAP queue 3), so the reference serves
+    deleted rows that its result formatting then drops. A dead row also
+    takes a slot of the reference's 50-row hamming shortlist, so a live row
+    that the port reranks into its top 10 may be missing there: the
+    reference's lists are in-order subsets of the port's top 20, and the
+    port's hold no deleted row."""
+    back, port = metric_runs["back"][metric], metric_runs["port"][metric]
+    for mode in ("plain", "filtered"):
+        if metric == "euclidean":
+            _same_results(back[mode], port[mode])
+        else:
+            _in_order_subset(back[mode], port[f"deep_{mode}"])
+            assert not DEAD & {r["id"] for row in port[f"deep_{mode}"] for r in row}
+    assert back["vectors"] == port["vectors"]

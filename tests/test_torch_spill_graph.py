@@ -31,15 +31,18 @@ def _recall(got, want):
     return float(np.mean([len(set(g) & set(w)) / K for g, w in zip(got.tolist(), want.tolist())]))
 
 
-@pytest.fixture(scope="module")
-def spilled():
+def _spill_pair(metric: str, scale: bool):
+    """Both packages' spilled index over the reference's graph, the queries,
+    the exact scan's answers and the resident graph's at ef 16, 32, 128."""
     rng = np.random.default_rng(3)
     centres = rng.normal(size=(N // 64, D))
     x, q = _clustered(rng, N, centres), _clustered(rng, B, centres)
+    if scale:  # rows of norms 0.5-1.5: euclidean ranks unlike cosine
+        x = (x * rng.uniform(0.5, 1.5, (N, 1))).astype(np.float32)
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(JS, "_WIRE_BW_MBPS", 1e9)  # the reference ships exact f32 rows and queries
         mp.delenv("COSDATA_STREAM_CODES", raising=False)
-        j = JHNSW(dim=D, kind="u8", range_=(-0.5, 0.5), keep_raw=False, initial_capacity=N)
+        j = JHNSW(dim=D, metric=metric, kind="u8", range_=(-0.5, 0.5), keep_raw=False, initial_capacity=N)
         j.add(x)
         a = {k: np.asarray(v) for k, v in j.store._arrays._asdict().items()}
         a.update(
@@ -48,14 +51,27 @@ def spilled():
             up_slot=np.asarray(j.up_slot), levels=j.levels, level_counts=j.level_counts, n_up=j.n_up,
             entry=j.entry, entry_level=j.entry_level, alive=np.asarray(j.alive),
         )
-        t = THNSW.from_arrays(a, metric="cosine", device="cpu")
+        t = THNSW.from_arrays(a, metric=metric, device="cpu")
         resident = {ef: j.search(q, K, ef=ef, rerank=False)[0] for ef in (16, 32, 128)}
-        np.testing.assert_array_equal(t.search(q, K, ef=16, rerank=False)[0], resident[16])
+        same = t.search(q, K, ef=16, rerank=False)[0] == resident[16]
+        # euclidean gathered scores differ from XLA's fused ones in the last
+        # bit, which can swap a near-tie
+        assert same.all() if metric == "cosine" else same.mean() >= 0.99
         for idx in (j, t):
             idx.force_spill(keep_graph=True)
             assert idx.store.codes_on_host and idx.graph_on_spill
         exact = t.search_brute(q, K)[0]
-        yield j, t, q, exact, resident
+    return j, t, q, exact, resident
+
+
+@pytest.fixture(scope="module")
+def spilled():
+    return _spill_pair("cosine", False)
+
+
+@pytest.fixture(scope="module")
+def spilled_euclidean():
+    return _spill_pair("euclidean", True)
 
 
 @pytest.mark.parametrize("ef", [16, 32, 128])
@@ -75,3 +91,19 @@ def test_hostcodes_graph_equals_reference_query_for_query(spilled, ef):
         # same graph served with its upper levels reads higher
         assert rec < 0.99
         assert _recall(resident[ef], exact) > rec
+
+
+@pytest.mark.parametrize("ef", [32, 128])
+def test_hostcodes_graph_euclidean_equals_reference(spilled_euclidean, ef):
+    """The same engine on a euclidean graph over rows of varied norms."""
+    j, t, q, exact, _ = spilled_euclidean
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(JS, "_WIRE_BW_MBPS", 1e9)
+        j_ids, j_sc = j.search(q, K, ef=ef, rerank=False)
+    t_ids, t_sc = t.search(q, K, ef=ef, rerank=False)
+    # a last-bit difference in a gathered score can swap a near-tie (the
+    # resident check above): ids agree on 99% of the slots
+    same = t_ids == j_ids
+    assert same.mean() >= 0.99
+    np.testing.assert_allclose(t_sc[same], j_sc[same], rtol=2e-5, atol=1e-6)
+    assert (t_sc <= 0).all() and abs(_recall(t_ids, exact) - _recall(j_ids, exact)) <= 0.01

@@ -236,3 +236,24 @@ def test_streamed_flat_topk_matches_reference(kind, streamed):
                 c_s, c_i = JF.streamed_flat_topk(metric, j, q, k_fetch, valid)
                 streamed.delenv("COSDATA_STREAM_CODES")
                 _compare_topk(t_s, t_i, c_s, c_i)
+
+
+@pytest.mark.parametrize("metric", ["euclidean", "hamming"])
+def test_streamed_metrics_match_reference(metric, streamed):
+    """A spilled u8 store streamed by euclidean distance (K1 per chunk in the
+    port) and by hamming distance (the plain merge in both packages)."""
+    j, t = _pair("u8", 2, False, metric=metric)
+    streamed.setenv("COSDATA_HBM_GB", TINY_GB)
+    x, q = _rows(5000, 11), _rows(7, 12)
+    j.add(x)
+    t.add(x)
+    assert j.codes_on_host and t.codes_on_host
+    valid = np.zeros(t.capacity, bool)
+    valid[: t.n] = True
+    valid[::7] = False  # tombstones
+    for k_fetch in (10, 50):
+        j_s, j_i = JF.streamed_flat_topk(metric, j, q, k_fetch, valid)
+        t_s, t_i = TF.streamed_flat_topk(metric, t, q, k_fetch, torch.from_numpy(valid))
+        _compare_topk(t_s, t_i, j_s, j_i)
+        got = t_i.numpy()
+        assert valid[got[got >= 0]].all()

@@ -193,12 +193,19 @@ def test_float_scores(metric):
 
 
 def test_unsupported_metrics(pair):
+    """Euclidean on sub-byte storage raises the reference's ValueError at
+    score time; sub-byte hamming and float euclidean equal the reference's
+    (hamming bit for bit, float euclidean within rtol 1e-5)."""
     _, q, store = pair
     tq, ts = _port_subbyte(q), _port_subbyte(store)
-    with pytest.raises(ValueError, match="sub-byte"):
+    with pytest.raises(ValueError, match="euclidean unsupported for sub-byte storage"):
         TD.score("euclidean", "subbyte", tq, ts, D_PAD)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TD.score("hamming", "subbyte", tq, ts, D_PAD)
-    f = TQ.quantize_f32(torch.from_numpy(_rows(4, seed=1)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TD.score("euclidean", "float", f, f, D_PAD)
+    want = np.asarray(JD.score("hamming", "subbyte", q, store, D_PAD))
+    np.testing.assert_array_equal(TD.score("hamming", "subbyte", tq, ts, D_PAD).numpy(), want)
+    # distinct rows: a self-distance is the f32 residue of |x|² + |x|² - 2x·x
+    xq, xs = _rows(4, seed=1), _rows(32, seed=2)
+    want = np.asarray(JD.score("euclidean", "float", JQ.quantize_f32(jnp.asarray(xq)),
+                               JQ.quantize_f32(jnp.asarray(xs)), D_PAD))
+    got = TD.score("euclidean", "float", TQ.quantize_f32(torch.from_numpy(xq)), TQ.quantize_f32(torch.from_numpy(xs)),
+                   D_PAD)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)

@@ -1,6 +1,7 @@
 """Port parity: the plain version of the u8_bin_max kernel (K1) against the
 reference's Pallas kernel (interpret mode), its jnp scoring route, and its
-bins-mode maxima. The CUDA kernel itself is checked against the same plain
+bins-mode maxima; its euclidean epilogue (which the Pallas kernel lacks)
+against the reference's u8 euclidean scores, bit for bit. The CUDA kernel itself is checked against the same plain
 version on the card by chip_smoke.py."""
 
 import numpy as np
@@ -113,6 +114,16 @@ def test_plain_chunking_is_invisible(data, monkeypatch):
 
 @pytest.mark.parametrize("metric", ["euclidean", "hamming"])
 def test_kernel_metrics(data, metric):
+    """Euclidean: the plain version equals the reference's u8 euclidean
+    scores maxed over 32-row groups, bit for bit (the Pallas K1 has no
+    euclidean). Hamming has no bin kernel and is refused by name."""
     store, q, valid = data
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        K.bin_max_terms(metric, _to_torch(q), _to_torch(store), torch.from_numpy(valid), D_PAD)
+    if metric == "hamming":
+        with pytest.raises(ValueError, match="cosine, dot, euclidean"):
+            K.bin_max_terms(metric, _to_torch(q), _to_torch(store), torch.from_numpy(valid), D_PAD)
+        return
+    ref = np.asarray(JD.score(metric, "u8", q, store, D_PAD))
+    ref = np.where(valid[None, :], ref, np.float32(K.SINK)).reshape(B, C // GROUP, GROUP).max(-1)
+    got = _port(metric, store, q, valid)
+    assert (ref < -1e37).any() and (ref > -1e37).any()
+    np.testing.assert_array_equal(got, ref)

@@ -95,7 +95,21 @@ computed on the card, hamming binary and f16 FlatIndexes at 262,144 rows
 held the same way, a euclidean f32 FlatIndex, the quaternary euclidean
 ValueError, and a euclidean and a hamming collection of 16,384 rows over
 REST (a streamed delete, a restart answering identically, gRPC equal to
-REST). K1 and K2 launch counts are read around each path. Any failure exits non-zero. The last line is one JSON
+REST); 21 sharded dense collections: a u8 DenseIndexHandle with 4 shards
+(ShardedHNSWIndex, shards cycled over the card's devices: 4 on one card)
+over phase 3's rows, 995,904 in one call (a bulk build per shard) and
+4,096 more (one insertion wave per shard), its scan route (K1 once per
+shard per batch, counted; K1 held against its plain version on each
+shard's own store, masked and not), its graph route at ef 128, a 50% mask against
+a masked oracle, served over HTTP from 8 threads, a delete; a quaternary
+handle of 4 shards of 65,536 rows (K2 once per shard chunk, counted);
+ShardedFlatIndex over the 1M rows on a dp 2 x tp 2 mesh of the first card
+and on the default mesh (recall@10 gated at 0.999, ids equal to the
+oracle's on untied slots); and the dry run's served path: a collection
+with ``config.shards`` 4 written over REST (16,384 rows), filtered,
+streamed a delete, gRPC equal to REST, restarted from its sharded
+snapshot with identical answers. K1 and K2 launch counts are read around
+each path. Any failure exits non-zero. The last line is one JSON
 object naming the device.
 """
 
@@ -131,6 +145,7 @@ try:
     from cosdata_tpu_torch.ops import flat_scan, sparse_kernels
     from cosdata_tpu_torch.ops.kernels import subbyte_scan, u8_scan
     from cosdata_tpu_torch.ops.quantize import quantize_subbyte, quantize_u8
+    from cosdata_tpu_torch.parallel.sharded import ShardedFlatIndex, make_mesh
     from cosdata_tpu_torch.text.processing import process_text_query
     from cosdata_tpu_torch.tools.measure import bound, card_line, clustered, cuda_ms, device_ms
     from cosdata_tpu_torch.tools.profile_dense import device_us
@@ -159,6 +174,9 @@ N_SP, VOCAB_SP, NNZ_SP, NNZ_Q, SEED_SP = 500_000, 30_000, 64, 24, 7
 #: the reference's hybrid section (bench.py:962-1070): docs, sparse seed;
 #: phase 14 serves the first N_SP_REST of its rows over REST
 N_HY, SEED_HY, N_SP_REST = 100_000, 13, 16_384
+#: phase 21: shards of the sharded engines (the dry run's count), and the
+#: rows phase 21a adds after its bulk build (one insertion wave per shard)
+SHARDS, SHARD_WAVE_ROWS = 4, 4096
 #: the reference's BM25 bench corpus (bench.py:638-714): docs, vocabulary,
 #: words per doc, words per query (a doc's rarest), seed; phase 17 serves
 #: the first N_SP_REST docs over REST
@@ -226,6 +244,25 @@ def kernel_timing(what: str, kernel, plain, library, plain_reps: int, ops: float
             "bound_by": bound_by, "ms_back_to_back": b2b, "library_ms_back_to_back": lib_b2b}
 
 
+def k1_against_plain(metric: str, t, where: str) -> float:
+    """K1 against its plain version on the terms ``t``: the same shape,
+    invalid bins sunk, live bins within RTOL/ATOL. Returns the max abs
+    error; fails otherwise."""
+    got = u8_scan.u8_bin_max(metric, 32, t)
+    want = u8_scan.u8_bin_max_plain(metric, 32, t)
+    torch.cuda.synchronize(t.codes.device)
+    if got.shape != want.shape:
+        fail(f"K1 shape {tuple(got.shape)} != {tuple(want.shape)} at {where}")
+    live = want > -1e37
+    if not bool((got[~live] < -1e37).all()):
+        fail(f"invalid bins not sunk at {where}")
+    err = (got[live] - want[live]).abs()
+    e = float(err.max()) if err.numel() else 0.0
+    if bool((err > ATOL + RTOL * want[live].abs()).any()):
+        fail(f"kernel disagrees with plain at {where}: {e}")
+    return e
+
+
 def kernel_check(gen, dev, card: str) -> tuple[float, dict]:
     """K1 against its plain version at the listed shapes (B = 1, 100 and 128
     and C = 4,128 hit the tiles' edges), by cosine, dot and euclidean;
@@ -248,20 +285,8 @@ def kernel_check(gen, dev, card: str) -> tuple[float, dict]:
                 for b in (1, 8, 100, 128, 1024, 4096):
                     q = quantize_u8(torch.rand((b, dp), generator=gen, device=dev) * 2 - 1, -0.6, 0.7, d_true)
                     t = u8_scan.bin_max_terms(metric, q, store, valid, dp)
-                    got = u8_scan.u8_bin_max(metric, 32, t)
-                    want = u8_scan.u8_bin_max_plain(metric, 32, t)
-                    torch.cuda.synchronize()
-                    if got.shape != want.shape:
-                        fail(f"K1 shape {tuple(got.shape)} != {tuple(want.shape)} at B={b} C={c} Dp={dp}")
-                    live = want > -1e37
-                    if not bool((got[~live] < -1e37).all()):
-                        fail(f"invalid bins not sunk at B={b} C={c} Dp={dp} {metric}")
-                    err = (got[live] - want[live]).abs()
-                    bad = err > ATOL + RTOL * want[live].abs()
-                    e = float(err.max()) if err.numel() else 0.0
+                    e = k1_against_plain(metric, t, f"B={b} C={c} Dp={dp} {metric}")
                     errs.append(f"B={b}:{e:.3g}")
-                    if bool(bad.any()):
-                        fail(f"kernel disagrees with plain at B={b} C={c} Dp={dp} {metric}: {e}")
                     max_err = max(max_err, e)
                     if (c, dp) == (1_048_576, 768) and (metric, b) in K1_TIMED_CASES:
                         # codes and query codes read once, the row and query terms, the bins
@@ -272,7 +297,7 @@ def kernel_check(gen, dev, card: str) -> tuple[float, dict]:
                             lambda: torch._int_mm(t.q_codes, t.codes.t()), 3, 2.0 * b * c * dp,
                             c * dp + b * dp + 12 * c + 8 * b + 4 * b * (c // 32), card,
                             f32_ops=12.0 * b * c if metric == "euclidean" else 0.0)
-                    del t, got, want
+                    del t
                 print(f"  C={c:8d} Dp={dp:4d} {metric:6s} max_abs_err {' '.join(errs)}", flush=True)
             del store
             torch.cuda.empty_cache()
@@ -287,6 +312,13 @@ def check_results(name: str, ids, truth: torch.Tensor, t: float, card: str, gate
     print(f"{name}: recall@10 {r:.4f}, {t * 1e3:.2f} ms/batch, {b / t:.1f} qps [{card}]", flush=True)
     if gate and r < MIN_RECALL:
         fail(f"{name}: recall@10 {r:.4f} < {MIN_RECALL}")
+
+
+def sync_all(devices) -> None:
+    """Wait for every one of ``devices`` (torch.cuda.synchronize waits for
+    the current device only)."""
+    for d in set(devices):
+        torch.cuda.synchronize(d)
 
 
 def reset_counts() -> None:
@@ -2196,6 +2228,279 @@ def other_metrics_phase(x, q, q_big, truth, dev, card: str) -> dict:
     return out
 
 
+def shard_k1_check(idx, qb, mask: np.ndarray, card: str) -> None:
+    """K1 against its plain version on every shard's own store, alive rows
+    and query codes, as the sharded scan builds its terms after its first
+    search (C = the shard's capacity in whole scan chunks, about half of it
+    past the shard's rows), and on each shard again under the global
+    ``mask``."""
+    errs = []
+    for s, sh in enumerate(idx.shards):
+        if sh.cap % HNSWIndex.SCAN_CHUNK:
+            fail(f"21a: shard {s}'s capacity {sh.cap} is not the whole scan chunks its search scans")
+        store = sh.store
+        qc = store.ship_query_codes(qb.to(store.device))
+        for label, local in (("", None), (" masked", idx._local_mask(s, mask))):
+            valid = sh._valid(local)
+            t = u8_scan.bin_max_terms(store.metric, qc, store.arrays, valid, store.dim_pad)
+            where = (f"shard {s}{label} B={len(qb)} C={sh.cap} Dp={store.dim_pad} {store.metric} "
+                     f"({int(valid.sum())} valid rows)")
+            errs.append(k1_against_plain(store.metric, t, where))
+            del t
+    print(f"  K1 against plain on each shard's store (C={[sh.cap for sh in idx.shards]}, rows "
+          f"{[sh.n for sh in idx.shards]}, unmasked and masked): max_abs_err {max(errs):.3g} "
+          f"(rtol {RTOL}, atol {ATOL}) [{card}]", flush=True)
+
+
+def sharded_u8_phase(x, q, truth, dev, card: str) -> dict:
+    """Phase 21a: a u8 DenseIndexHandle with SHARDS shards over the card's
+    devices (ShardedHNSWIndex), filled with N - SHARD_WAVE_ROWS rows in one
+    call (a bulk build per shard) and SHARD_WAVE_ROWS more (one insertion
+    wave per shard); the scan route (K1 once per shard), the graph route at
+    ef 128, a 50% mask, served over HTTP from 8 threads, and a delete.
+    Returns K1's launches and its launches per batch."""
+    lo, hi = tune_dense_range(x[:1000].cpu().numpy())
+    handle = DenseIndexHandle(DIM, dev, shards=SHARDS,
+                              quantization={"type": "scalar", "data_type": "u8", "range": {"min": lo, "max": hi}})
+    idx = handle.index
+    n_bulk = N - SHARD_WAVE_ROWS
+    t0 = time.perf_counter()
+    handle.add_batch(list(range(n_bulk)), x[:n_bulk])
+    sync_all(idx.devices)
+    t_bulk = time.perf_counter() - t0
+    builds = [sh.last_build_stats for sh in idx.shards]
+    t0 = time.perf_counter()
+    handle.add_batch(list(range(n_bulk, N)), x[n_bulk:])
+    sync_all(idx.devices)
+    t_waves = time.perf_counter() - t0
+    per_shard = ", ".join(f"{b['ingest_s']} + {b['graph_s']} s" for b in builds)
+    print(f"ShardedHNSWIndex of {SHARDS} shards on {[str(d) for d in idx.devices]}: bulk build of {n_bulk} rows "
+          f"{t_bulk:.1f} s (per shard ingest + graph: {per_shard}); {SHARD_WAVE_ROWS} rows more (one wave of "
+          f"{SHARD_WAVE_ROWS // SHARDS} per shard) {t_waves:.2f} s; rows per shard {[sh.n for sh in idx.shards]}; "
+          f"range ({lo}, {hi}) [{card}]", flush=True)
+    if idx.n != N or any(sh.scan_only or sh.entry < 0 for sh in idx.shards):
+        fail("21a: a shard built no graph")
+
+    qb, tb = q[:1024], truth[:1024]
+    mask = np.zeros(N, bool)
+    mask[::2] = True
+    handle.search(qb, 10)  # the first search grows each shard's capacity to whole scan chunks
+    shard_k1_check(idx, qb, mask, card)  # before the counts are reset: these launches are not the path's
+    reset_counts()
+    handle.search(qb, 10)
+    per_batch = u8_scan.u8_bin_max.launches
+    t, (ids, _) = timed_search(lambda: handle.search(qb, 10))
+    check_results(f"sharded u8 DenseIndexHandle.search b1024 (scan, {SHARDS} shards)", ids, tb, t, card, True)
+    print(f"  u8_bin_max launches per batch {per_batch} (one per shard; capacities "
+          f"{[sh.cap for sh in idx.shards]}) [{card}]", flush=True)
+    if per_batch != SHARDS:
+        fail(f"21a: the sharded scan launched K1 {per_batch} times per batch, want {SHARDS}")
+    profile_top(lambda: handle.search(qb, 10), card)
+
+    idx.flat_serve_threshold = min(sh.n for sh in idx.shards) - 1  # every shard takes its graph
+    before = u8_scan.u8_bin_max.launches
+    t, (ids, _) = timed_search(lambda: handle.search(qb, 10, ef=128), reps=3)
+    check_results(f"sharded graph route ef=128 b1024 (limit {idx.flat_serve_threshold} per shard)", ids, tb, t,
+                  card, True)
+    print(f"  u8_bin_max launches in the graph route {u8_scan.u8_bin_max.launches - before}", flush=True)
+    del idx.flat_serve_threshold
+
+    want = exact_top10(qb, x[::2]) * 2
+    t, (ids, _) = timed_search(lambda: handle.search(qb, 10, row_mask=mask), reps=3)
+    if not mask[ids].all():
+        fail("21a: the masked search returned rows outside the mask")
+    check_results("sharded 50% mask b1024 (masked scan on every shard)", ids, want, t, card, True)
+
+    with tempfile.TemporaryDirectory(prefix="cosdata_smoke_") as data_dir:
+        ctx = AppContext(load_config(data_path=data_dir), admin_key=ADMIN_KEY, device=dev)
+        server = RestServer(ctx)
+        client = RestClient(server.port)
+        client.login()
+        mount(ctx, "sharded_u8", handle)
+        qr = np.round(q.cpu().numpy().astype(np.float64), 6)
+        batch_search(client, "sharded_u8", qr[:QUERY_ROWS], WORKERS)  # first search of the collection
+        ids_r, _, dt, lat = batch_search(client, "sharded_u8", qr, WORKERS)
+        served_line(f"served sharded u8 {N} rows, {WORKERS} workers", ids_r, truth.cpu().numpy(), dt, lat, card)
+        client.close()
+        server.close()
+        ctx.close()
+
+    victim = int(ids[0, 0])
+    handle.delete(victim)
+    got, _ = handle.search(x[victim : victim + 1], 10)
+    print(f"  deleted {victim} absent from its own query: {victim not in got} [{card}]", flush=True)
+    if victim in got:
+        fail(f"21a: the deleted row {victim} answered its own query")
+    return {"launches": u8_scan.u8_bin_max.launches, "per_batch": per_batch}
+
+
+def sharded_q4_phase(x, q, dev, card: str) -> dict:
+    """Phase 21b: a quaternary DenseIndexHandle with SHARDS shards over the
+    reference's N_SUB rows (one 65,536-row chunk per shard): K2 once per
+    shard chunk and one query unpack per shard per batch."""
+    handle = DenseIndexHandle(DIM, dev, shards=SHARDS, quantization={"type": "scalar", "data_type": "quaternary"})
+    idx = handle.index
+    t0 = time.perf_counter()
+    handle.add_batch(list(range(N_SUB)), x[:N_SUB])
+    sync_all(idx.devices)
+    print(f"quaternary ShardedHNSWIndex: {N_SUB} rows in {time.perf_counter() - t0:.1f} s (per shard graph "
+          f"{[b['graph_s'] for b in (sh.last_build_stats for sh in idx.shards)]} s); rows per shard "
+          f"{[sh.n for sh in idx.shards]} [{card}]", flush=True)
+    qb = q[:1024]
+    want = exact_top10(qb, x[:N_SUB])
+    reset_counts()
+    handle.search(qb, 10)
+    k2, unpack = subbyte_scan.subbyte_code_scores.launches, subbyte_scan.unpack_query_codes.launches
+    chunks = sum(-(-sh.cap // HNSWIndex.SCAN_CHUNK) for sh in idx.shards)
+    t, (ids, _) = timed_search(lambda: handle.search(qb, 10))
+    check_results(f"sharded quaternary DenseIndexHandle.search b1024 ({SHARDS} shards of {N_SUB // SHARDS})",
+                  ids, want, t, card, True)
+    print(f"  subbyte_code_scores launches per batch {k2} ({chunks} chunks of {HNSWIndex.SCAN_CHUNK}), query "
+          f"unpack {unpack} [{card}]", flush=True)
+    if k2 != chunks or chunks != SHARDS:
+        fail(f"21b: K2 launched {k2} times per batch over {chunks} shard chunks, want {SHARDS}")
+    return {"k2": subbyte_scan.subbyte_code_scores.launches, "unpack": subbyte_scan.unpack_query_codes.launches,
+            "k2_per_batch": k2, "unpack_per_batch": unpack}
+
+
+def sharded_flat_phase(x, q, truth, dev, card: str) -> None:
+    """Phase 21c: ShardedFlatIndex over the 1M rows on a dp 2 x tp 2 mesh of
+    the first card repeated, then on the default mesh over the real
+    devices: recall@10 against the oracle (gated at 0.999) and ids equal to
+    the oracle's on untied slots."""
+    qb = q[:1024]
+    vals, ids = [], []
+    for s in range(0, len(qb), 512):
+        v, i = torch.topk(qb[s : s + 512] @ x.T, 10, dim=1)
+        vals.append(v)
+        ids.append(i)
+    o_vals, o_ids = torch.cat(vals).cpu().numpy(), torch.cat(ids).cpu().numpy()
+    first = torch.device("cuda", 0)  # the first card, repeated
+    for name, mesh in (("dp 2 x tp 2 on the first card", lambda: make_mesh(devices=[first] * 4)),
+                       ("the default mesh", make_mesh)):
+        m = mesh()
+        flat = ShardedFlatIndex(m, DIM, N)
+        t0 = time.perf_counter()
+        flat.add(x)
+        sync_all([d for row in m.devices for d in row])
+        t_add = time.perf_counter() - t0
+        t, (got, _) = timed_search(lambda: flat.search(qb, 10), reps=3)
+        r = recall10(got, truth[:1024])
+        same, share = untied_equal(got, o_ids, o_vals)
+        print(f"ShardedFlatIndex on {name} ({m.shape}, {torch.cuda.device_count()} device(s)): add {t_add:.2f} s; "
+              f"b1024 recall@10 {r:.4f}, {t * 1e3:.2f} ms/batch, {1024 / t:.1f} qps; ids equal to the oracle's on "
+              f"untied slots {same} ({share:.1%} of slots) [{card}]", flush=True)
+        if r < 0.999 or not same:
+            fail(f"21c: ShardedFlatIndex on {name}: recall@10 {r:.4f} (< 0.999?) or ids differ on untied slots")
+        del flat
+        torch.cuda.empty_cache()
+
+
+def sharded_rest_phase(data_dir: str, x_rest: np.ndarray, q_rest: np.ndarray, dev, card: str) -> None:
+    """Phase 21d: the dry run's served path (``__graft_entry__.py:84-166``)
+    over the port: a collection with ``config.shards`` SHARDS written over
+    REST in one transaction, searched, filtered, streamed a delete,
+    answered by gRPC as by REST, and restarted from its sharded snapshot.
+    The dense index tunes its u8 range on the rows ("auto"), as phase 9's
+    does, where the dry run fixes (-0.5, 0.5)."""
+    from cosdata_tpu_torch.grpc_api import vector_service_pb2 as pb
+
+    truth = exact_top10(torch.as_tensor(q_rest, dtype=torch.float32, device=dev),
+                        torch.as_tensor(x_rest, dtype=torch.float32, device=dev)).cpu().numpy()
+    ctx = AppContext(load_config(data_path=data_dir), admin_key=ADMIN_KEY, device=dev)
+    server = RestServer(ctx)
+    client = RestClient(server.port)
+    client.login()
+    c = "/vectordb/collections/sharded"
+    client.ok("POST", "/vectordb/collections", {
+        "name": "sharded", "dense_vector": {"enabled": True, "dimension": DIM},
+        "config": {"max_vectors": None, "shards": SHARDS},
+        "metadata_schema": {"fields": [{"name": "half", "values": ["a", "b"]}], "supported_conditions": []},
+    })
+    desc = client.ok("POST", c + "/indexes/dense", {"name": "i", "distance_metric_type": "cosine",
+                                                    "hnsw_params": {"num_layers": 2}, "quantization": {"type": "auto"}})
+    t0 = time.perf_counter()
+    rows = x_rest.tolist()
+    txn = client.ok("POST", c + "/transactions", {})["transaction_id"]
+    for s in range(0, len(rows), UPSERT_ROWS):
+        client.ok("POST", f"{c}/transactions/{txn}/upsert", {"vectors": [
+            {"id": i, "dense_values": rows[i], "metadata": {"half": "a" if i % 2 == 0 else "b"}}
+            for i in range(s, s + UPSERT_ROWS)]})
+    client.ok("POST", f"{c}/transactions/{txn}/commit", {})
+    while client.ok("GET", f"{c}/transactions/{txn}/status")["status"] != "complete":
+        if time.perf_counter() - t0 > 600:
+            fail("21d: the transaction did not complete")
+        time.sleep(0.2)
+    t_ingest = time.perf_counter() - t0
+    idx = ctx.get_collection("sharded").dense.index
+    shards = [sh.n for sh in idx.shards]
+    if not getattr(idx, "is_sharded", False) or sum(shards) != len(rows) or desc.get("shards") != SHARDS:
+        fail(f"21d: the collection is not sharded as asked: {desc}, rows per shard {shards}")
+    ids, _, dt, lat = batch_search(client, "sharded", q_rest, WORKERS)
+    r = float((ids[:, :, None] == truth[:, None, :]).any(-1).sum()) / truth.size
+    print(f"REST sharded collection ({SHARDS} shards {shards}): ingest of {len(rows)} x {DIM} {t_ingest:.1f} s; "
+          f"/search/batch-dense recall@10 {r:.4f}, {len(q_rest) / dt:.1f} qps [{card}]", flush=True)
+    if r < MIN_RECALL:
+        fail(f"21d: REST sharded recall@10 {r:.4f} < {MIN_RECALL}")
+    flt = {"Is": {"field_name": "half", "field_value": "a", "operator": "Equal"}}
+    res = client.ok("POST", c + "/search/dense", {"query_vector": q_rest[0].tolist(), "top_k": 10,
+                                                  "filter": flt})["results"]
+    if len(res) != 10 or any(r["id"] % 2 for r in res):
+        fail(f"21d: the filtered search returned ids without the filter value: {[r['id'] for r in res]}")
+    victim = int(ids[0, 0])
+    client.ok("DELETE", f"{c}/streaming/vectors/{victim}")
+    res = client.ok("POST", c + "/search/dense", {"query_vector": rows[victim], "top_k": 10})["results"]
+    if victim in [r["id"] for r in res] or len(res) != 10:
+        fail(f"21d: the streamed delete of {victim} came back")
+    seq = batch_search(client, "sharded", q_rest[:256], 1)
+    got, _ = grpc_find(ctx, [pb.FindSimilarVectorsRequest(
+        collection_id="sharded", dense=pb.FindSimilarDenseVectorsQuery(vector=v.tolist(), top_k=10),
+    ) for v in q_rest[:8]])
+    print(f"  filtered search: ok; streamed delete of {victim}: ok; gRPC FindSimilarVectors x8: ids equal REST's "
+          f"{got == seq[0][:8].tolist()}", flush=True)
+    if got != seq[0][:8].tolist():
+        fail("21d: gRPC ids differ from REST's")
+    client.close()
+    server.close()
+    ctx.close()
+    t0 = time.perf_counter()
+    ctx = AppContext(load_config(data_path=data_dir), admin_key=ADMIN_KEY, device=dev)
+    server = RestServer(ctx)
+    client = RestClient(server.port)
+    client.login()
+    ids2, sc2, _, _ = batch_search(client, "sharded", q_rest[:256], 1)
+    status, _ = client.call("GET", f"{c}/vectors/{victim}")
+    res = client.ok("POST", c + "/search/dense", {"query_vector": rows[victim], "top_k": 10})["results"]
+    idx = ctx.get_collection("sharded").dense.index
+    same = bool((ids2 == seq[0]).all() and (sc2 == seq[1]).all())
+    gone = status == 404 and victim not in [r["id"] for r in res]
+    print(f"  after restart ({time.perf_counter() - t0:.1f} s; sharded {getattr(idx, 'is_sharded', False)}, rows "
+          f"per shard {[sh.n for sh in idx.shards]}): ids and scores identical {same}; deleted {victim} absent "
+          f"{gone} (HTTP {status}) [{card}]", flush=True)
+    client.close()
+    server.close()
+    ctx.close()
+    if not (same and gone):
+        fail("21d: the restarted sharded collection answered differently or served the deleted vector")
+
+
+def sharded_phase(x, q, truth, x_rest, q_rest, dev, card: str) -> dict:
+    """Phase 21 (module doc); returns the kernels' launches and launches per batch."""
+    t0 = time.perf_counter()
+    out = sharded_u8_phase(x, q, truth, dev, card)
+    torch.cuda.empty_cache()
+    phase(f"21b sharded quaternary at {N_SUB} x {DIM}")
+    out.update(sharded_q4_phase(x, q, dev, card))
+    torch.cuda.empty_cache()
+    phase(f"21c ShardedFlatIndex at {N} x {DIM}")
+    sharded_flat_phase(x, q, truth, dev, card)
+    phase(f"21d sharded collection over REST and gRPC at {len(x_rest)} rows")
+    with tempfile.TemporaryDirectory(prefix="cosdata_smoke_") as data_dir:
+        sharded_rest_phase(data_dir, x_rest, q_rest, dev, card)
+    print(f"phase 21 in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def launches_per_batch(kernels, search) -> list[int]:
     """The launches of each of ``kernels`` in one b1024 search of the main path."""
     reset_counts()
@@ -2345,6 +2650,12 @@ def main() -> None:
     other = other_metrics_phase(x, q, q_big, truth, dev, card)
     launches += other["launches"]
     print(f"phase 20 in {time.perf_counter() - t0:.1f} s")
+
+    phase(f"21a sharded u8 DenseIndexHandle at {N} x {DIM}, {SHARDS} shards")
+    sharded = sharded_phase(x, q, truth, x_hy, q_rest, dev, card)
+    launches += sharded["launches"]
+    k2_launches += sharded["k2"]
+    unpack_launches += sharded["unpack"]
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
     print(card)
@@ -2361,6 +2672,7 @@ def main() -> None:
         "launches": launches,
         "launches_per_batch": k1_per_batch,
         "streamed_launches_per_batch": spilled["per_batch"],
+        "sharded_launches_per_batch": sharded["per_batch"],
         "max_abs_err": max_err,
         **k1_timed[1024],
         "b128": k1_timed[128],
@@ -2374,6 +2686,7 @@ def main() -> None:
         "launches": k2_launches,
         "launches_per_batch": k2_per_batch,
         "streamed_launches_per_batch": k2_streamed,
+        "sharded_launches_per_batch": sharded["k2_per_batch"],
         "max_abs_err": k2_err,
         **k2_timed,
     }, {
@@ -2384,6 +2697,7 @@ def main() -> None:
         "launches": unpack_launches,
         "launches_per_batch": unpack_per_batch,
         "streamed_launches_per_batch": unpack_streamed,
+        "sharded_launches_per_batch": sharded["unpack_per_batch"],
         "max_abs_err": unpack_err,
         **unpack_timed,
     }]}))

@@ -24,12 +24,10 @@ aiohttp replaces actix; compute-heavy work runs in a worker executor so the
 event loop stays responsive (the reference's actix worker threads play the
 same role, web_server.rs:48).
 
-Port of ``cosdata_tpu/api/server.py``. Changed from the reference: a
-request this port does not serve yet raises ``NotImplementedError``, which
-answers 501 with the message naming its ROADMAP item (the reference's
-middleware would map it, a ``RuntimeError``, to 409 Conflict). Dense
-searches take the exact scan or the HNSW graph as the reference's do;
-``/neighbors`` answers the reference's plain 501 "not implemented".
+Port of ``cosdata_tpu/api/server.py``. Dense searches take the exact
+scan or the HNSW graph as the reference's do, sharded collections
+included; ``/neighbors`` answers the reference's plain 501 "not
+implemented".
 """
 
 from __future__ import annotations
@@ -110,8 +108,6 @@ class Server:
             return _err(401, str(e))
         except ValueError as e:
             return _err(400, str(e))
-        except NotImplementedError as e:  # a RuntimeError: catch it first
-            return _err(501, str(e))
         except RuntimeError as e:
             return _err(409, str(e))
         except Exception as e:  # pragma: no cover

@@ -6,13 +6,10 @@ metadata store, the collections map, the admin-key verification (double
 SHA-256) and the indexing manager.
 
 Port of ``cosdata_tpu/core/app_context.py``. Changed from the reference:
-the context takes the ``device`` every collection's indexes live on; a
-stored collection that holds what the port cannot load (a sharded dense
-snapshot, codes spilled to the host) is not loaded with that part
-dropped: it stays out of ``collections`` and ``get_collection`` raises
-``NotImplementedError`` with the reason (HTTP 501); a dense snapshot
-reloads with its HNSW graph (a scan-only one without); ``close()`` stops
-the epoch timer and drains background indexing.
+the context takes the ``device`` every collection's indexes live on (a
+sharded dense index cycles its shards over the CUDA devices); a dense
+snapshot reloads with its HNSW graph (a scan-only one without);
+``close()`` stops the epoch timer and drains background indexing.
 """
 
 from __future__ import annotations
@@ -43,8 +40,6 @@ class AppContext:
         self.meta = MetaStore(self.data_dir / "meta.sqlite")
         self.indexing = IndexingManager()
         self.collections: dict[str, Collection] = {}
-        #: stored collections this port cannot serve -> why (answered 501)
-        self.not_served: dict[str, str] = {}
         self.lock = threading.RLock()
         self._closed = False
         self._timer: threading.Timer | None = None
@@ -130,11 +125,7 @@ class AppContext:
         for _, cfg in self.meta.items("collections"):
             coll = Collection(self.meta, self.data_dir, cfg, self.device)
             coll.app_config = self.config
-            try:
-                self._restore_indexes(coll, cfg)
-            except NotImplementedError as e:
-                self.not_served[coll.name] = str(e)
-                continue
+            self._restore_indexes(coll, cfg)
             self._replay_wals(coll)
             self.collections[coll.name] = coll
 
@@ -199,10 +190,6 @@ class AppContext:
             return coll
 
     def get_collection(self, name: str) -> Collection | None:
-        if name in self.not_served:
-            raise NotImplementedError(
-                f"collection '{name}' cannot be served by this port: {self.not_served[name]}"
-            )
         coll = self.collections.get(name)
         if coll is None and self.meta.get("collections", name) is not None:
             # lazily reload an unloaded collection (collection_cache.rs:56-270)
@@ -240,13 +227,7 @@ class AppContext:
                 raise KeyError(f"collection '{name}' not found")
             coll = Collection(self.meta, self.data_dir, cfg, self.device)
             coll.app_config = self.config
-            try:
-                self._restore_indexes(coll, cfg)
-            except NotImplementedError as e:
-                self.not_served[name] = str(e)
-                raise NotImplementedError(
-                    f"collection '{name}' cannot be served by this port: {e}"
-                ) from e
+            self._restore_indexes(coll, cfg)
             self._replay_wals(coll)
             self.collections[name] = coll
             self._maybe_evict(keep=name)
@@ -282,7 +263,6 @@ class AppContext:
         with self.lock:
             cfg = self.meta.get("collections", name)
             coll = self.collections.pop(name, None)
-            self.not_served.pop(name, None)
             if cfg is None and coll is None:
                 raise KeyError(f"collection '{name}' not found")
             # drain queued background indexing: a worker indexing this

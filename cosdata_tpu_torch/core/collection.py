@@ -16,7 +16,10 @@ as in the reference. Every tensor lives on the ``device`` the collection
 was given, apart from the spill tiers: ``raw_storage`` "host" or "disk"
 keeps the raw rows on the host, and codes that outgrow the device budget
 spill there too (``ops/storage.py``); ``flush`` moves them back once they
-fit.
+fit. A handle with ``shards > 1`` serves a ``ShardedHNSWIndex``
+(``parallel/sharded_hnsw.py``), one sub-index per shard cycled over the
+CUDA devices, which picks each shard's route itself and is never
+compacted at flush.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ from cosdata_tpu_torch.indexes.hnsw import HNSWIndex, HNSWParams
 from cosdata_tpu_torch.indexes.inverted import InvertedIndex
 from cosdata_tpu_torch.indexes.tf_idf import TFIDFIndex
 from cosdata_tpu_torch.ops.storage import SUBBYTE_ALIAS, as_rows
+from cosdata_tpu_torch.parallel.sharded_hnsw import ShardedHNSWIndex
 from cosdata_tpu_torch.store.meta import MetaStore
 from cosdata_tpu_torch.store.versioning import VersionControl
 from cosdata_tpu_torch.store.wal import OP_DELETE, OP_UPSERT, read_wal
@@ -101,9 +105,11 @@ class DenseIndexHandle:
         shards: int = 1,
     ):
         quantization = quantization or {"type": "auto", "sample_threshold": 100}
-        if int(shards or 1) > 1:
-            raise NotImplementedError("sharded dense indexes are not ported yet (ROADMAP queue 1: multi-GPU)")
         self.device = torch.device(device)
+        #: shards > 1: the engine is a ShardedHNSWIndex with one sub-index
+        #: per shard, cycled over the CUDA devices (or on ``device`` itself
+        #: when that is not a CUDA device)
+        self.shards = max(int(shards or 1), 1)
         self.descriptor = {
             "index_type": "dense",
             "distance_metric": distance_metric,
@@ -111,6 +117,8 @@ class DenseIndexHandle:
             "hnsw_params": hnsw_params or {},
             "raw_storage": raw_storage,
         }
+        if self.shards > 1:
+            self.descriptor["shards"] = self.shards
         #: where the raw rows live: the device, host RAM, a memory-mapped
         #: file, or nowhere (codes only)
         if raw_storage not in ("device", "host", "disk", "none"):
@@ -137,7 +145,7 @@ class DenseIndexHandle:
         self.sample_threshold = 0
         self.kind = "u8"
         self.range = (-1.0, 1.0)
-        self.index: HNSWIndex | None = None
+        self.index: HNSWIndex | ShardedHNSWIndex | None = None
         #: row-map generation: bumped when compaction rebuilds the row
         #: space, forcing the next maps snapshot to rewrite its base
         self._gen = 0
@@ -184,6 +192,19 @@ class DenseIndexHandle:
         return self.index is not None
 
     def _build(self, initial_capacity: int = 1024):
+        if self.shards > 1:
+            self.index = ShardedHNSWIndex(
+                dim=self.dimension,
+                devices=None if self.device.type == "cuda" else [self.device],
+                n_shards=self.shards,
+                metric=self.metric,
+                kind=self.kind,
+                range_=self.range,
+                params=self.params,
+                seed=self.seed,
+                keep_raw=self.keep_raw,
+            )
+            return
         self.index = HNSWIndex(
             dim=self.dimension,
             device=self.device,
@@ -241,9 +262,10 @@ class DenseIndexHandle:
     def flush(self):
         self.finalize_sampling()
         self.maybe_compact()
-        if self.index is not None:
+        if self.index is not None and not getattr(self.index, "is_sharded", False):
             # spilled codes go back to the device once the budget fits
-            # (the compaction may have shrunk the store)
+            # (the compaction may have shrunk the store); a sharded engine
+            # has no promotion, as in the reference
             self.index.maybe_promote()
 
     #: tombstone fraction that triggers a rebuild at flush time
@@ -257,6 +279,10 @@ class DenseIndexHandle:
         below), as the reference does at flush points."""
         idx = self.index
         if idx is None or idx.n == 0:
+            return
+        if getattr(idx, "is_sharded", False):
+            # a sharded engine only tombstones: a rebuild across shards is
+            # a reshard, not a flush-time side effect
             return
         if idx.n_deleted / idx.n < self.COMPACT_THRESHOLD:
             return
@@ -292,10 +318,14 @@ class DenseIndexHandle:
         ``graph_filter_min`` and ``flat_serve_threshold`` take the graph
         with oversampling and a post-filter, and any query left with fewer
         than top_k survivors escalates to the exact masked scan. A
-        scan-only index (no graph) takes the exact scan at any size."""
+        scan-only index (no graph) takes the exact scan at any size. A
+        sharded engine picks each shard's route itself and runs a masked
+        search as the exact masked scan on every shard."""
         self.finalize_sampling()
         idx = self.index
-        if row_mask is None and (idx.n <= self.flat_serve_threshold or idx.scan_only):
+        if getattr(idx, "is_sharded", False):
+            rows, scores = idx.search(queries, top_k=top_k, ef=ef, row_mask=row_mask)
+        elif row_mask is None and (idx.n <= self.flat_serve_threshold or idx.scan_only):
             rows, scores = idx.search_brute(queries, top_k=top_k)
         elif row_mask is not None:
             selectivity = float(row_mask.mean()) if len(row_mask) else 0.0
@@ -1121,7 +1151,10 @@ class Collection:
         if d is not None and d.index is not None and d.index.store.keep_raw:
             row = d.row_of.get(iid)
             if row is not None:
-                vals = d.index.store.raw_rows([row])[0].cpu().numpy()
+                if getattr(d.index, "is_sharded", False):
+                    vals = d.index.raw_rows([row])[0]
+                else:
+                    vals = d.index.store.raw_rows([row])[0].cpu().numpy()
                 out["dense_values"] = [float(x) for x in vals]
         if self.sparse is not None:
             pairs = self.sparse.raw_pairs(iid)

@@ -5,9 +5,7 @@ server, same AppContext) and src/grpc/{collections,vectors}.rs semantics.
 Like the reference's dense gRPC search, metadata filters are not exposed
 over gRPC (explicit TODO at grpc/vectors/mod.rs:110-113).
 
-Port of ``cosdata_tpu/grpc_api/server.py``. Changed from the reference: a
-``NotImplementedError`` of the port (a collection or an option the port
-cannot serve yet) answers UNIMPLEMENTED with its message.
+Port of ``cosdata_tpu/grpc_api/server.py``.
 """
 
 from __future__ import annotations
@@ -51,10 +49,7 @@ class _Services:
         _abort(context, grpc.StatusCode.UNAUTHENTICATED, "invalid or missing session")
 
     def _coll(self, context, collection_id: str):
-        try:
-            coll = self.ctx.get_collection(collection_id)
-        except NotImplementedError as e:
-            _abort(context, grpc.StatusCode.UNIMPLEMENTED, str(e))
+        coll = self.ctx.get_collection(collection_id)
         if coll is None:
             _abort(
                 context,
@@ -371,8 +366,6 @@ class _Services:
                 grpc.StatusCode.FAILED_PRECONDITION,
                 "required index does not exist",
             )
-        except NotImplementedError as e:
-            _abort(context, grpc.StatusCode.UNIMPLEMENTED, str(e))
         resp = pb.FindSimilarVectorsResponse()
         for r in results:
             m = resp.matches.add(id=str(r["id"]), score=r["score"])

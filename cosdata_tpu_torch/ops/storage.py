@@ -441,7 +441,8 @@ class VectorStore:
             stage = self._staging[off : off + sz].view(t.dtype).view(n, *t.shape[1:])
             torch.index_select(t, 0, ids, out=stage)
             out.append(stage.to(self.device, non_blocking=True))
-        self._staging_done.record()
+        # the copies ran on the store's device's stream, whichever device is current
+        self._staging_done.record(torch.cuda.current_stream(self.device))
         return out
 
     def raw_rows(self, rows) -> torch.Tensor:

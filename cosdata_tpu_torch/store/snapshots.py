@@ -30,12 +30,14 @@ other's snapshots:
   rows (``sp_raw_dims``, ``sp_raw_vals``), and ``sparse.msgpack`` written
   last; the device CSR, doc rows and head matrix are rebuilt from them at
   the first search;
+- a sharded dense engine: one ``dense_shard{s}/`` sub-snapshot per shard
+  in the layout above, then ``dense_sharded.msgpack`` (``n_shards``,
+  ``n``, ``global_of``: each shard's local row -> global row, and
+  ``configured_range``); the load rebuilds the global tombstones from
+  the shards';
 - the tf-idf index: ``tfidf.msgpack`` (k1, b, avgdl, the document
   accounting, ``alive``/``has_doc`` and each term's postings); its device
   arrays are rebuilt from it at the first search.
-
-Not ported (raises ``NotImplementedError`` naming its ROADMAP item):
-sharded dense snapshots.
 """
 
 from __future__ import annotations
@@ -240,6 +242,23 @@ def _save_dense(idx, snap_dir: Path, configured_range: list) -> None:
     vs.tracker.bump()
 
 
+def _save_sharded_dense(d, snap_dir: Path) -> None:
+    """A sharded engine: each shard as a dense sub-snapshot, then the
+    manifest with the global <-> local row maps (written last)."""
+    idx = d.index
+    for s, shard in enumerate(idx.shards):
+        sub = snap_dir / f"dense_shard{s}"
+        sub.mkdir(parents=True, exist_ok=True)
+        _save_dense(shard, sub, list(d.range))
+    manifest = {
+        "n_shards": len(idx.shards),
+        "n": idx.n,
+        "global_of": [list(map(int, g)) for g in idx._global_of],
+        "configured_range": list(d.range),
+    }
+    _atomic_write(snap_dir / "dense_sharded.msgpack", msgpack.packb(manifest))
+
+
 def save_collection_state(coll, snap_dir: str | Path, archive: bool = False) -> None:
     """Persist collection state into ``snap_dir``. ``archive=True`` marks a
     one-shot version-context history dir (always full, self-contained)."""
@@ -248,7 +267,10 @@ def save_collection_state(coll, snap_dir: str | Path, archive: bool = False) -> 
     _save_maps(coll, snap_dir, archive=archive)
     d = coll.dense
     if d is not None and d.index is not None:
-        _save_dense(d.index, snap_dir, list(d.range))
+        if getattr(d.index, "is_sharded", False):
+            _save_sharded_dense(d, snap_dir)
+        else:
+            _save_dense(d.index, snap_dir, list(d.range))
     if coll.sparse is not None:
         _save_sparse(coll.sparse, snap_dir)
     if coll.tfidf is not None:
@@ -456,17 +478,33 @@ def _load_store(snap_dir: Path, meta: dict, z, dim: int, device, keep_raw_mode) 
     return vs
 
 
+def _read_meta(path: Path) -> dict:
+    with open(path, "rb") as f:
+        return msgpack.unpackb(f.read(), strict_map_key=False)
+
+
+def _handle_kind(meta: dict) -> str:
+    """The DenseIndexHandle kind of a dense snapshot's store."""
+    return _SUBBYTE_NAME[int(meta["resolution"])] if meta["kind"] == "subbyte" else meta["kind"]
+
+
 def load_dense(d, snap_dir: Path, meta: dict) -> np.ndarray:
     """Rebuild the dense handle ``d``'s index from the dense snapshot in
     ``snap_dir`` (``meta``: its parsed ``dense.msgpack``); returns the
     alive mask over the store's capacity."""
-    z = np.load(snap_dir / "dense.npz")
-    d.kind = _SUBBYTE_NAME[int(meta["resolution"])] if meta["kind"] == "subbyte" else meta["kind"]
+    d.kind = _handle_kind(meta)
     d.range = tuple(meta["configured_range"])
     d._build()
-    idx = d.index
+    return _load_index(d.index, snap_dir, meta, d.keep_raw)
+
+
+def _load_index(idx, snap_dir: Path, meta: dict, keep_raw_mode) -> np.ndarray:
+    """Load a dense snapshot into the fresh HNSWIndex ``idx``, on its
+    store's device; returns the alive mask over the store's capacity."""
+    z = np.load(snap_dir / "dense.npz")
+    dim, device = idx.store.dim, idx.store.device
     idx.store.close()  # the fresh index's store is replaced
-    idx.store = _load_store(snap_dir, meta, z, d.dimension, d.device, d.keep_raw)
+    idx.store = _load_store(snap_dir, meta, z, dim, device, keep_raw_mode)
     alive = np.ones(idx.store.capacity, bool)
     saved_alive = np.asarray(z["alive"], bool)[: idx.store.capacity]
     alive[: len(saved_alive)] = saved_alive
@@ -496,6 +534,36 @@ def load_dense(d, snap_dir: Path, meta: dict) -> np.ndarray:
     return alive
 
 
+def _load_sharded_dense(d, snap_dir: Path, manifest: dict, dense_rows: dict | None) -> None:
+    """Rebuild the dense handle ``d``'s sharded engine: each shard from its
+    sub-snapshot on its own device, the row maps from the manifest, and
+    the handle's live rows from the shards' tombstones."""
+    d.kind = _handle_kind(_read_meta(snap_dir / "dense_shard0" / "dense.msgpack"))
+    d.range = tuple(manifest["configured_range"])
+    d.shards = int(manifest["n_shards"])
+    d._build()
+    idx = d.index
+    alive_parts = []
+    for s, shard in enumerate(idx.shards):
+        sub = snap_dir / f"dense_shard{s}"
+        alive = _load_index(shard, sub, _read_meta(sub / "dense.msgpack"), d.keep_raw)
+        alive_parts.append(alive[: shard.n])
+    idx.n = int(manifest["n"])
+    idx._global_of = [list(map(int, g)) for g in manifest["global_of"]]
+    idx._loc_of = {int(g): (s, j) for s, lst in enumerate(idx._global_of) for j, g in enumerate(lst)}
+    idx.scan_only = idx.shards[0].scan_only
+    if dense_rows is not None:
+        d._gen = int(dense_rows["gen"])
+        d.internal_of = [int(x) for x in dense_rows["internal_of"]]
+        d.field_rows = {f: [int(x) for x in v] for f, v in dense_rows["field_rows"].items()}
+        # global alive: the shards' tombstones mapped to global rows
+        alive_g = np.ones(max(idx.n, len(d.internal_of)), bool)
+        for s, lst in enumerate(idx._global_of):
+            if lst:
+                alive_g[np.asarray(lst, np.int64)] = alive_parts[s][: len(lst)]
+        d.row_of = {int(iid): r for r, iid in enumerate(d.internal_of) if r < len(alive_g) and alive_g[r]}
+
+
 def load_collection_state(coll, snap_dir: str | Path) -> None:
     snap_dir = Path(snap_dir)
     maps_path = snap_dir / "maps.msgpack"
@@ -519,15 +587,13 @@ def load_collection_state(coll, snap_dir: str | Path) -> None:
         if log_p.exists():
             dense_rows = _replay_map_log(coll, dense_rows, log_p)
 
-    if (snap_dir / "dense_sharded.msgpack").exists() and coll.dense is not None:
-        raise NotImplementedError(
-            "sharded dense snapshots are not ported yet (ROADMAP queue 1: multi-GPU)"
-        )
+    sharded_p = snap_dir / "dense_sharded.msgpack"
+    if sharded_p.exists() and coll.dense is not None:
+        _load_sharded_dense(coll.dense, snap_dir, _read_meta(sharded_p), dense_rows)
 
     dense_meta_p = snap_dir / "dense.msgpack"
     if dense_meta_p.exists() and coll.dense is not None:
-        with open(dense_meta_p, "rb") as f:
-            meta = msgpack.unpackb(f.read(), strict_map_key=False)
+        meta = _read_meta(dense_meta_p)
         d = coll.dense
         alive = load_dense(d, snap_dir, meta)
         if dense_rows is None and "internal_of" in meta:

@@ -255,9 +255,9 @@ def test_semantics(data):
 
 def test_routes_not_ported_raise(data, handles):
     """Above the serving limits the handle answers by its graph (built by
-    insertion waves as the rows came in); sharding, not ported yet,
-    raises naming its ROADMAP item; euclidean and hamming handles and
-    raw_storage "host" and "disk" (the spill tiers) are accepted."""
+    insertion waves as the rows came in); two shards on the CPU serve
+    self-queries; euclidean and hamming handles and raw_storage "host" and
+    "disk" (the spill tiers) are accepted."""
     x, q, truth = data
     port, _ = handles
     old = port.flat_serve_threshold
@@ -276,8 +276,13 @@ def test_routes_not_ported_raise(data, handles):
         port.graph_filter_min = old_min
     finally:
         port.flat_serve_threshold = old
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TC.DenseIndexHandle(DIM, "cpu", shards=2)
+    # sharding is ported: two shards on the CPU serve a self-query
+    h = TC.DenseIndexHandle(DIM, "cpu", shards=2)
+    h.add_batch(list(range(300)), x[:300])
+    assert h.index.is_sharded and [s.n for s in h.index.shards] == [150, 150]
+    assert h.descriptor["shards"] == 2
+    ids, _ = h.search(x[[5, 250]], K)
+    assert ids[:, 0].tolist() == [5, 250]
     # euclidean and hamming are ported: each handle serves a self-query
     for kwargs in (
         {"distance_metric": "euclidean"},

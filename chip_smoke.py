@@ -48,10 +48,14 @@ two legs, GET by id, a streamed delete, a restart answering identically
 and gRPC sparse search equal to REST's; 15 hybrid search at 100,000 docs (a
 u8 dense leg on K1, a sparse leg on the head engine) through
 Collection.hybrid_search_batch and /search/batch-hybrid, held against RRF
-of the legs; 16 the BM25 engine at the reference's bench scale (100,000
-docs of 40 zipf words): ingest, first search, b64/b256/b1 search, recall
+of the legs; 16 the native text pipeline built with g++ from the checkout
+and held bit for bit against its plain Python version (the corpus's
+documents and queries, a Unicode corpus), then the BM25 engine at the
+reference's bench scale (100,000 docs of 40 zipf words): ingest through
+the library, first search, b64/b256/b1 search, recall
 against the index's exhaustive oracle and against a brute-force Σ idf·tf
-computed on the card from its postings, a profile of a b256 search, then
+computed on the card from its postings, a profile of a b256 search, the
+host time of its query texts (library and plain), then
 dense + text hybrid search (a u8 dense leg on K1 over 100,000 rows) held
 against RRF of the legs; 17 a collection with a dense and a tf-idf index
 written over REST (16,384 rows with texts in one transaction), tf-idf,
@@ -146,9 +150,13 @@ try:
     from cosdata_tpu_torch.ops.kernels import subbyte_scan, u8_scan
     from cosdata_tpu_torch.ops.quantize import quantize_subbyte, quantize_u8
     from cosdata_tpu_torch.parallel.sharded import ShardedFlatIndex, make_mesh
+    from cosdata_tpu_torch.text import native as text_native
+    from cosdata_tpu_torch.text import processing as text_processing
     from cosdata_tpu_torch.text.processing import process_text_query
     from cosdata_tpu_torch.tools.measure import bound, card_line, clustered, cuda_ms, device_ms
     from cosdata_tpu_torch.tools.profile_dense import device_us
+    from cosdata_tpu_torch.tools.text_check import UNICODE_CORPUS, differences, pipeline
+    from cosdata_tpu_torch.tools.text_check import bm25_corpus as text_corpus
 except ModuleNotFoundError as err:
     raise SystemExit(f"FAIL: 0 environment: module {err.name} is missing ({err})") from err
 
@@ -1242,10 +1250,7 @@ def bm25_corpus() -> tuple[list[str], np.ndarray]:
     """bench.py's BM25 corpus: words w0..w19999, pareto(1.1) ids mod the
     vocabulary, WORDS_BM per doc; returns the texts and the (N_BM,
     WORDS_BM) word ids."""
-    rng = np.random.default_rng(SEED_BM)
-    ids = (rng.pareto(1.1, size=N_BM * WORDS_BM).astype(np.int64) % VOCAB_BM).reshape(N_BM, WORDS_BM)
-    words = [f"w{i}" for i in range(VOCAB_BM)]
-    return [" ".join(words[w] for w in row) for row in ids.tolist()], ids
+    return text_corpus(N_BM, VOCAB_BM, WORDS_BM, SEED_BM)
 
 
 def bm25_queries(ids: np.ndarray, rows) -> list[str]:
@@ -1321,9 +1326,43 @@ def profile_top(fn, card: str, top: int = 5) -> None:
         print(f"    {device_us(e) / 1e3:8.3f} ms  x{e.count:<4d} {e.key[:100]}", flush=True)
 
 
+def text_library_check(docs: list[str], queries: list[str], card: str) -> None:
+    """The native text pipeline, built from the checkout with g++, held bit
+    for bit against its plain Python version on this interpreter: every
+    document and query of the corpus and the Unicode corpus; any
+    difference fails. Prints the build time and both versions' rates."""
+    t_build = text_native.LIBRARY.build()
+    text_native.LIBRARY.load()
+    avgdl = float(WORDS_BM)
+    t0 = time.perf_counter()
+    for text in docs:
+        text_processing.process_text(text, 40, avgdl)
+    t_process = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lib = pipeline(docs, False, 40, avgdl)
+    t_lib = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain = pipeline(docs, True, 40, avgdl)
+    t_plain = time.perf_counter() - t0
+    bad = [i for i, (a, b) in enumerate(zip(lib, plain)) if a != b]
+    bad_q = differences(queries, 40, avgdl)
+    bad_u = differences(UNICODE_CORPUS) + differences(UNICODE_CORPUS, 6, 3.5, 2.0, 0.3)
+    print(f"text library {text_native.LIBRARY.library.name} built by g++ in {t_build:.2f} s; process_text "
+          f"{len(docs) / t_process:.0f} docs/s; process_text + count_tokens + process_text_query: library "
+          f"{len(docs) / t_lib:.0f} docs/s, plain {len(docs) / t_plain:.0f} docs/s (host) [{card}]", flush=True)
+    print(f"library against plain, bit for bit: {len(docs)} docs, {len(bad)} differ; {len(queries)} queries, "
+          f"{len(bad_q)} differ; Unicode corpus of {len(UNICODE_CORPUS)} cases x 2 settings, {len(bad_u)} differ",
+          flush=True)
+    if bad or bad_q or bad_u:
+        fail(f"the text library differs from its plain version: docs {bad[:5]}, queries {bad_q[:5]}, "
+             f"Unicode cases {bad_u}")
+
+
 def bm25_phase(x, q, docs: list[str], word_ids: np.ndarray, dev, card: str) -> int:
-    """Phase 16: the BM25 engine at 100,000 docs, then dense + text hybrid
-    over the same docs; returns K1's launches in the hybrid run."""
+    """Phase 16: the text library against its plain version, the BM25
+    engine at 100,000 docs, then dense + text hybrid over the same docs;
+    returns K1's launches in the hybrid run."""
+    text_library_check(docs, bm25_queries(word_ids, range(64)), card)
     tfi = TFIDFIndex(dev, sample_threshold=256)
     t0 = time.perf_counter()
     for i, text in enumerate(docs):
@@ -1381,6 +1420,14 @@ def bm25_phase(x, q, docs: list[str], word_ids: np.ndarray, dev, card: str) -> i
         if r < MIN_RECALL:
             fail(f"BM25 {name} {r:.4f} < {MIN_RECALL}")
     profile_top(lambda: tfi.search(queries * 4, 10), card)
+    t_query = {}
+    for name, fn in (("library", process_text_query), ("plain", text_processing.process_text_query_plain)):
+        t0 = time.perf_counter()
+        for text in queries * 4:
+            fn(text, tfi.max_token_len)
+        t_query[name] = time.perf_counter() - t0
+    print(f"b256 query texts to term ids: library {t_query['library'] * 1e3:.3f} ms, plain "
+          f"{t_query['plain'] * 1e3:.3f} ms, of the b256 search's {t256 * 1e3:.2f} ms (host) [{card}]", flush=True)
     del brute
 
     # dense + text hybrid: a u8 handle over phase 3's first N_BM rows (one

@@ -18,8 +18,8 @@ from the published text:
   ``"e"`` that steps 2's ``ational``/``ation``/``ator`` and
   ``iveness``/``iviti`` leave in a short R2).
 
-Pure Python; ``csrc/text_pipeline.cpp`` is an ASCII C++ reading of the
-same algorithm.
+Pure Python; ``cosdata_tpu_torch/csrc/text_pipeline.cpp`` is its C++
+reading in code points, which ``text/processing.py`` runs.
 """
 
 from __future__ import annotations

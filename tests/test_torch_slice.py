@@ -307,8 +307,13 @@ def test_routes_not_ported_raise(data, handles):
 def test_port_imports_neither_jax_nor_reference():
     code = (
         "import sys, pkgutil, importlib, cosdata_tpu_torch\n"
-        "for name in ('api.server', 'grpc_api.server', 'store.snapshots', '__main__'):\n"
+        "for name in ('api.server', 'grpc_api.server', 'store.snapshots', '__main__', 'cosql', 'text.native'):\n"
         "    importlib.import_module('cosdata_tpu_torch.' + name)\n"
+        "from cosdata_tpu_torch.text.native import LIBRARY\n"
+        "LIBRARY.load()  # builds the text library if it is not there yet\n"
+        "assert LIBRARY.terms('Runs running ΟΔΟΣ', 40, True)[0] == 3\n"
+        "from cosdata_tpu_torch.cosql import parse_statement\n"
+        "assert parse_statement('define entity city as name: string;')['kind'] == 'entity_definition'\n"
         "for m in pkgutil.walk_packages(cosdata_tpu_torch.__path__, 'cosdata_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'cosdata_tpu'))\n"

@@ -8,8 +8,9 @@ Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-Phases: 0 environment; 1 build both kernels (u8_bin_max, K1;
-subbyte_code_scores, K2) from the checkout's sources, in parallel; 2 K1
+Phases: 0 environment; 1 build the kernels (u8_bin_max, K1;
+subbyte_code_scores, K2; group_topk, the sub-byte scan's per-chunk top-k)
+from the checkout's sources, in parallel; 2 K1
 against its plain PyTorch version at the u8 path's shapes and the tiles'
 edges, by cosine, dot and euclidean, timed beside its bound and
 torch._int_mm (cosine at B=1024 and 128, euclidean at B=1024); 3 the u8
@@ -22,7 +23,11 @@ limit, through the approx select mode (K1 per 65,536-row chunk), against
 the oracle and the bins mode on its thirds; 4 u8 search semantics, and the graph routes with the serving limits
 below the rows (unfiltered and 50% filter by the graph, 5% filter by the
 scan, a deleted id never back); 5 K2 and its query unpack against their
-plain versions, bit for bit, timed likewise; 6 the sub-byte path on the
+plain versions, bit for bit, timed likewise, and K2's fused entry (the
+score epilogue, the row mask and the group maxima in the kernel) against
+its plain version by cosine and dot under two masks, scores bit for bit,
+and group_topk against its plain version (values bit for bit, ids on
+untied slots); 6 the sub-byte path on the
 same corpus through a quaternary DenseIndexHandle at 1M rows (its graph
 built the same way), recall@10 and K2's launch count; 7 quaternary search
 semantics; 8 a quaternary FlatIndex at 262,144 rows (the reference's bench
@@ -147,8 +152,9 @@ try:
     from cosdata_tpu_torch.indexes.inverted import InvertedIndex
     from cosdata_tpu_torch.indexes.tf_idf import TFIDFIndex
     from cosdata_tpu_torch.ops import flat_scan, sparse_kernels
-    from cosdata_tpu_torch.ops.kernels import subbyte_scan, u8_scan
+    from cosdata_tpu_torch.ops.kernels import group_topk, subbyte_scan, u8_scan
     from cosdata_tpu_torch.ops.quantize import quantize_subbyte, quantize_u8
+    from cosdata_tpu_torch.ops.topk import NEG_INF
     from cosdata_tpu_torch.parallel.sharded import ShardedFlatIndex, make_mesh
     from cosdata_tpu_torch.text import native as text_native
     from cosdata_tpu_torch.text import processing as text_processing
@@ -333,6 +339,7 @@ def reset_counts() -> None:
     u8_scan.u8_bin_max.launches = 0
     subbyte_scan.subbyte_code_scores.launches = 0
     subbyte_scan.unpack_query_codes.launches = 0
+    group_topk.merge_group_topk.launches = 0
 
 
 def graph_ingest(handle: DenseIndexHandle, x, q, card: str, name: str) -> None:
@@ -482,36 +489,70 @@ def graph_routes(handle: DenseIndexHandle, x, q, truth, card: str) -> None:
         fail(f"graph routes: deleted 7 came back or 8 did not find itself: {d_ids[:, :3].tolist()}")
 
 
-def k2_check(gen, dev, card: str) -> tuple[int, dict, int, dict]:
+def fused_against_plain(q, store, dp: int, want_dots, q_codes, gen, where: str) -> tuple[float, float]:
+    """K2's fused entry against its plain version (score_epilogue_plain on
+    the plain code dots ``want_dots``) by cosine and dot, under an all-true
+    and a 50% mask: scores bit for bit, group maxima equal. Returns the max
+    abs errors (scores, group maxima); fails otherwise."""
+    c = store.planes.shape[1]
+    half = torch.rand(c, generator=gen, device=store.planes.device) < 0.5
+    err = gerr = 0.0
+    for metric in ("cosine", "dot"):
+        for name, mask in (("all", torch.ones_like(half)), ("half", half)):
+            got_s, got_g = subbyte_scan.subbyte_scores_fused(metric, q, store, dp, mask, q_codes)
+            want_s, want_g = subbyte_scan.score_epilogue_plain(metric, q, store, want_dots, mask)
+            torch.cuda.synchronize()
+            if got_s.shape != want_s.shape or got_g.shape != want_g.shape:
+                fail(f"K2 fused shapes {tuple(got_s.shape)}, {tuple(got_g.shape)} at {where} {metric}")
+            e = float((got_s - want_s).abs().max())
+            ge = float((got_g - want_g).abs().max())
+            if e != 0 or ge != 0 or not torch.equal(got_s.view(torch.int32), want_s.view(torch.int32)):
+                fail(f"K2 fused disagrees with plain at {where} {metric} mask {name}: scores {e}, maxima {ge}")
+            err, gerr = max(err, e), max(gerr, ge)
+            del got_s, got_g, want_s, want_g
+    return err, gerr
+
+
+def k2_check(gen, dev, card: str) -> tuple[int, dict, int, dict, dict]:
     """K2 against its plain version, bit for bit: res 1-3; Dp 128 (d_true
     100), 160 (a partial K-slice), 768 and 1,536 (two K-chunks); the whole
     store and two row chunks of it, strided views of its planes (C = 65,440
     and 4,128 ragged against the 128-row store tile); B = 1 to 4,096. The
-    query unpack kernel against word_major_codes at the same shapes; the
-    row chunks take its codes as the chunked scan passes them, the whole
-    store has the wrapper unpack. Returns (K2's max_abs_err, its timing at
-    res=2, B=1024, C=65,536, Dp=768, the unpack's max_abs_err, its timing
-    at res=2, B=1024, Dp=768)."""
+    fused entry at the same shapes (fused_against_plain), with zero
+    magnitudes on every 1,009th row and on one query. The query unpack
+    kernel against word_major_codes at the same shapes; the row chunks take
+    its codes as the chunked scan passes them, the whole store has the
+    wrapper unpack. Returns (K2's max_abs_err, its timing at res=2, B=1024,
+    C=65,536, Dp=768, the unpack's max_abs_err, its timing at res=2,
+    B=1024, Dp=768, the fused entry's timing at K2's shape, cosine, with its
+    max_abs_err over every shape)."""
     max_err = unpack_err = 0
-    timed = unpack_timed = None
+    fused_err = gmax_err = 0.0
+    timed = unpack_timed = fused_timed = None
     for res in (1, 2, 3):
         for dp in (128, 160, 768, 1536):
             d_true = dp - 28 if dp == 128 else dp
             x = torch.rand((65_536 if dp in (128, 768) else 8_192, dp), generator=gen, device=dev) * 2 - 1
             whole = quantize_subbyte(x, res, d_true)
             del x
-            for planes in (whole.planes, whole.planes[:, 96:], whole.planes[:, 1000:5128]):
+            whole = whole._replace(mags=whole.mags.clone())
+            whole.mags[::1009] = 0.0
+            for rows in (slice(None), slice(96, None), slice(1000, 5128)):
+                store = whole._replace(planes=whole.planes[:, rows], sums=whole.sums[rows], mags=whole.mags[rows])
+                planes = store.planes
                 c = planes.shape[1]
-                errs = []
+                errs, fused_errs = [], []
                 for b in (1, 8, 100, 128, 1024, 4096):
                     q = quantize_subbyte(torch.rand((b, dp), generator=gen, device=dev) * 2 - 1, res, d_true)
+                    if b > 1:
+                        q.mags[b // 2] = 0.0
                     q_codes = subbyte_scan.unpack_query_codes(q.planes)
                     ue = int((q_codes.to(torch.int32) - subbyte_scan.word_major_codes(q.planes).to(torch.int32))
                              .abs().max())
                     if ue != 0:
                         fail(f"the query unpack disagrees with word_major_codes at res={res} B={b} Dp={dp}: {ue}")
                     unpack_err = max(unpack_err, ue)
-                    chunk = planes is not whole.planes
+                    chunk = rows != slice(None)
                     got = subbyte_scan.subbyte_code_scores(q.planes, planes, dp, q_codes if chunk else None)
                     want = subbyte_scan.subbyte_code_scores_plain(q.planes, planes, dp)
                     torch.cuda.synchronize()
@@ -522,6 +563,11 @@ def k2_check(gen, dev, card: str) -> tuple[int, dict, int, dict]:
                     if e != 0:
                         fail(f"K2 disagrees with plain at res={res} B={b} C={c} Dp={dp}: {e}")
                     max_err = max(max_err, e)
+                    del got
+                    fe, ge = fused_against_plain(q, store, dp, want, q_codes if chunk else None, gen,
+                                                 f"res={res} B={b} C={c} Dp={dp}")
+                    fused_errs.append(f"B={b}:{fe:.3g}/{ge:.3g}")
+                    fused_err, gmax_err = max(fused_err, fe), max(gmax_err, ge)
                     if (res, b, c, dp) == (2, 1024, 65_536, 768):
                         qc, vc = subbyte_scan.word_major_codes(q.planes), subbyte_scan.word_major_codes(planes)
                         # both sides' planes read once, the int32 dots written (the wrapper's
@@ -532,18 +578,101 @@ def k2_check(gen, dev, card: str) -> tuple[int, dict, int, dict]:
                             lambda: subbyte_scan.subbyte_code_scores_plain(q.planes, planes, dp),
                             lambda: torch._int_mm(qc, vc.t()), 5, 2.0 * b * c * dp,
                             4 * res * (dp // 32) * (b + c) + 4 * b * c, card)
+                        # the fused entry as the scan calls it (cosine, a mask of every row): both
+                        # sides' planes, the row terms (sums, magnitudes, mask bytes) and the query
+                        # terms read once, the f32 scores and group maxima written; ~8 float32
+                        # operations per score in its epilogue; _int_mm is the product only
+                        valid = torch.ones(c, dtype=torch.bool, device=dev)
+                        fused_timed = kernel_timing(
+                            f"the fused entry, cosine, res={res} B={b} C={c} Dp={dp}",
+                            lambda: subbyte_scan.subbyte_scores_fused("cosine", q, store, dp, valid),
+                            lambda: subbyte_scan.subbyte_scores_fused_plain("cosine", q, store, dp, valid),
+                            lambda: torch._int_mm(qc, vc.t()), 5, 2.0 * b * c * dp,
+                            4 * res * (dp // 32) * (b + c) + 9 * c + 8 * b + 4 * b * c
+                            + 4 * b * (-(-c // subbyte_scan.GROUP)), card, f32_ops=8.0 * b * c)
                         # the query planes read once, the int8 codes written; no arithmetic to speak of
                         unpack_timed = kernel_timing(
                             f"the query unpack, res={res} B={b} Dp={dp}",
                             lambda: subbyte_scan.unpack_query_codes(q.planes),
                             lambda: subbyte_scan.word_major_codes(q.planes), None, 5, 0.0,
                             4 * res * (dp // 32) * b + b * dp, card)
-                        del qc, vc
-                    del got, want, q, q_codes
-                print(f"  res={res} C={c:6d} Dp={dp:4d} d_true={d_true:4d} max_abs_err {' '.join(errs)}", flush=True)
-            del whole, planes
+                        del qc, vc, valid
+                    del want, q, q_codes
+                print(f"  res={res} C={c:6d} Dp={dp:4d} d_true={d_true:4d} max_abs_err {' '.join(errs)}; "
+                      f"fused (scores/maxima, cosine and dot, all and half masks) {' '.join(fused_errs)}",
+                      flush=True)
+                del store, planes
+            del whole
             torch.cuda.empty_cache()
-    return max_err, timed, unpack_err, unpack_timed
+    fused_timed.update(max_abs_err=fused_err, group_max_abs_err=gmax_err)
+    return max_err, timed, unpack_err, unpack_timed, fused_timed
+
+
+def group_topk_against_plain(scores, gmax, top_s, top_i, start: int, where: str) -> float:
+    """group_topk against its plain version on the same inputs: the sorted
+    values bit for bit, the ids equal where the values are untied, no id
+    twice. Returns the max abs error of the values; fails otherwise."""
+    got_s, got_i = group_topk.merge_group_topk(scores, gmax, top_s, top_i, start)
+    want_s, want_i = group_topk.merge_group_topk_plain(scores, gmax, top_s, top_i, start)
+    torch.cuda.synchronize()
+    got_s, order = torch.sort(got_s, dim=1, descending=True, stable=True)
+    got_i = torch.gather(got_i, 1, order)
+    want_s, order = torch.sort(want_s, dim=1, descending=True, stable=True)
+    want_i = torch.gather(want_i, 1, order)
+    err = float((got_s - want_s).abs().max())
+    untied = torch.ones_like(got_s, dtype=torch.bool)
+    untied[:, 1:] &= got_s[:, 1:] != got_s[:, :-1]
+    untied[:, :-1] &= got_s[:, :-1] != got_s[:, 1:]
+    untied[:, -1] = False
+    live = got_s > NEG_INF / 2
+    ids, _ = torch.sort(torch.where(live, got_i, -1 - torch.arange(got_i.shape[1], device=got_i.device)), dim=1)
+    if err != 0 or not torch.equal(got_s.view(torch.int32), want_s.view(torch.int32)):
+        fail(f"group_topk values disagree with plain at {where}: {err}")
+    if not torch.equal(got_i[untied & live], want_i[untied & live]):
+        fail(f"group_topk ids disagree with plain on untied slots at {where}")
+    if bool((ids[:, 1:] == ids[:, :-1]).any()):
+        fail(f"group_topk returned an id twice at {where}")
+    return err
+
+
+def group_topk_check(gen, dev, card: str) -> tuple[float, dict]:
+    """group_topk against its plain version: C = 65,536, 65,440 and 4,128
+    (the ragged last group), k = 10, 200 and 2,000, B = 1 to 4,096, on
+    scores in eighths (many ties) with a third of the rows and one whole
+    group masked, merged into a running top-k half of whose entries are
+    empty (NEG_INF, id -1); then on K2's fused cosine scores of quaternary
+    rows, timed at the main path's B=1024, C=65,536, k=200. Returns
+    (max_abs_err, the timing)."""
+    max_err = 0.0
+    for c in (65_536, 65_440, 4_128):
+        for k in (10, 200, 2_000):
+            errs = []
+            for b in (1, 8, 100, 1024, 4096):
+                s = torch.randint(-400, 400, (b, c), generator=gen, device=dev).to(torch.float32) / 8
+                s[:, torch.rand(c, generator=gen, device=dev) < 0.3] = NEG_INF
+                s[:, 64:96] = NEG_INF
+                gmax = torch.nn.functional.pad(s, (0, -c % 32), value=NEG_INF).view(b, -1, 32).amax(dim=2)
+                top_s = torch.randint(-400, 400, (b, k), generator=gen, device=dev).to(torch.float32) / 8
+                top_i = torch.randint(0, 1 << 40, (b, k), generator=gen, device=dev) + (1 << 41)
+                top_s[:, ::2] = NEG_INF
+                top_i[:, ::2] = -1
+                e = group_topk_against_plain(s, gmax, top_s, top_i, 1 << 20, f"B={b} C={c} k={k}")
+                errs.append(f"B={b}:{e:.3g}")
+                max_err = max(max_err, e)
+                del s, gmax, top_s, top_i
+            print(f"  group_topk C={c:6d} k={k:5d} max_abs_err {' '.join(errs)}", flush=True)
+    c, b, k = 65_536, 1024, 200
+    store = quantize_subbyte(torch.rand((c, DIM), generator=gen, device=dev) * 2 - 1, 2, DIM)
+    q = quantize_subbyte(torch.rand((b, DIM), generator=gen, device=dev) * 2 - 1, 2, DIM)
+    scores, gmax = subbyte_scan.subbyte_scores_fused("cosine", q, store, DIM)
+    top_s, top_i = torch.topk(scores[:, : c // 2], k, dim=1, sorted=False)  # a running top-k of the first half
+    max_err = max(max_err, group_topk_against_plain(scores, gmax, top_s, top_i, c, "fused cosine scores"))
+    # read: the group maxima, the kept groups' rows and the running top-k; written: the new top-k
+    timed = kernel_timing(
+        f"group_topk B={b} C={c} k={k}", lambda: group_topk.merge_group_topk(scores, gmax, top_s, top_i, c),
+        lambda: group_topk.merge_group_topk_plain(scores, gmax, top_s, top_i, c), None, 5, 0.0,
+        4 * b * (c // 32) + 4 * b * k * 32 + 2 * 12 * b * k, card)
+    return max_err, timed
 
 
 def flat_index(kind: str, x, dev) -> FlatIndex:
@@ -553,11 +682,11 @@ def flat_index(kind: str, x, dev) -> FlatIndex:
     return flat
 
 
-def subbyte_path(x, q, truth, dev, card: str) -> tuple[int, int, DenseIndexHandle]:
-    """Phases 6 to 8; returns K2's and the query unpack's launches during
-    the quaternary runs and the quaternary handle, which phases 11 and 18
-    serve."""
-    k2, unpack = subbyte_scan.subbyte_code_scores, subbyte_scan.unpack_query_codes
+def subbyte_path(x, q, truth, dev, card: str) -> tuple[int, int, int, DenseIndexHandle]:
+    """Phases 6 to 8; returns K2's, the query unpack's and group_topk's
+    launches during the quaternary runs and the quaternary handle, which
+    phases 11 and 18 serve."""
+    k2, unpack, gt = subbyte_scan.subbyte_code_scores, subbyte_scan.unpack_query_codes, group_topk.merge_group_topk
     t0 = time.perf_counter()
     handle = DenseIndexHandle(DIM, dev, quantization={"type": "scalar", "data_type": "quaternary"})
     graph_ingest(handle, x, q, card, "quaternary handle")
@@ -565,12 +694,13 @@ def subbyte_path(x, q, truth, dev, card: str) -> tuple[int, int, DenseIndexHandl
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t_h, (h_ids, _) = timed_search(lambda: handle.search(q[:1024], 10))
-    launches_h, unpack_h = k2.launches, unpack.launches
+    launches_h, unpack_h, gt_h = k2.launches, unpack.launches, gt.launches
     check_results(f"quaternary DenseIndexHandle.search {N} rows b1024", h_ids, truth[:1024], t_h, card, True)
     print(f"store bytes {handle.index.store.device_nbytes()}; peak allocated during search "
-          f"{torch.cuda.max_memory_allocated()} B; K2 launches {launches_h}, query unpack {unpack_h} [{card}]")
-    if launches_h == 0 or unpack_h == 0:
-        fail("the quaternary DenseIndexHandle path never launched K2 or the query unpack")
+          f"{torch.cuda.max_memory_allocated()} B; K2 launches {launches_h}, query unpack {unpack_h}, group_topk "
+          f"{gt_h} [{card}]")
+    if launches_h == 0 or unpack_h == 0 or gt_h == 0:
+        fail("the quaternary DenseIndexHandle path never launched K2, the query unpack or group_topk")
 
     phase("7 quaternary semantics")
     probe = [7, N // 3]
@@ -597,13 +727,14 @@ def subbyte_path(x, q, truth, dev, card: str) -> tuple[int, int, DenseIndexHandl
     reset_counts()
     t_f1, (f1_ids, _) = timed_search(lambda: flat.search(q[:1024], 10, rerank=True, rerank_factor=20))
     t_f4, (f4_ids, _) = timed_search(lambda: flat.search(q, 10, rerank=True, rerank_factor=20))
-    launches_f, unpack_f = k2.launches, unpack.launches
+    launches_f, unpack_f, gt_f = k2.launches, unpack.launches, gt.launches
     check_results("quaternary FlatIndex.search(rerank x20) b1024", f1_ids, truth_s[:1024], t_f1, card, True)
     check_results("quaternary FlatIndex.search(rerank x20) b4096", f4_ids, truth_s, t_f4, card, True)
     print(f"store bytes {flat.store.device_nbytes()}; peak allocated during search "
-          f"{torch.cuda.max_memory_allocated()} B; K2 launches {launches_f}, query unpack {unpack_f} [{card}]")
-    if launches_f == 0 or unpack_f == 0:
-        fail("the quaternary FlatIndex path never launched K2 or the query unpack")
+          f"{torch.cuda.max_memory_allocated()} B; K2 launches {launches_f}, query unpack {unpack_f}, group_topk "
+          f"{gt_f} [{card}]")
+    if launches_f == 0 or unpack_f == 0 or gt_f == 0:
+        fail("the quaternary FlatIndex path never launched K2, the query unpack or group_topk")
     del flat
     torch.cuda.empty_cache()
     # octal at the handle's 5x ladder step and at 20x
@@ -617,7 +748,7 @@ def subbyte_path(x, q, truth, dev, card: str) -> tuple[int, int, DenseIndexHandl
                   f"{unpack.launches}")
         del flat
         torch.cuda.empty_cache()
-    return launches_h + launches_f, unpack_h + unpack_f, handle
+    return launches_h + launches_f, unpack_h + unpack_f, gt_h + gt_f, handle
 
 
 class RestServer:
@@ -872,10 +1003,11 @@ def served_phase(ctx: AppContext, client: RestClient, u8_handle, q4_handle, q, t
     sub = qr[: 8 * QUERY_ROWS]
     ids4, _, dt4, lat4 = batch_search(client, "served_q4", sub, WORKERS)
     k2, unpack = subbyte_scan.subbyte_code_scores.launches, subbyte_scan.unpack_query_codes.launches
+    gt = group_topk.merge_group_topk.launches
     served_line(f"served quaternary {N} rows, {WORKERS} workers", ids4, truth[: len(sub)].cpu().numpy(),
                 dt4, lat4, card)
-    print(f"subbyte_code_scores launches in phase 11: {k2}, query unpack {unpack}", flush=True)
-    return {"k1": k1, "k2": k2, "unpack": unpack, "ids": ids, "qr": qr}
+    print(f"subbyte_code_scores launches in phase 11: {k2}, query unpack {unpack}, group_topk {gt}", flush=True)
+    return {"k1": k1, "k2": k2, "unpack": unpack, "gt": gt, "ids": ids, "qr": qr}
 
 
 def grpc_find(ctx: AppContext, requests: list) -> tuple[list, float]:
@@ -2398,16 +2530,18 @@ def sharded_q4_phase(x, q, dev, card: str) -> dict:
     reset_counts()
     handle.search(qb, 10)
     k2, unpack = subbyte_scan.subbyte_code_scores.launches, subbyte_scan.unpack_query_codes.launches
+    gt = group_topk.merge_group_topk.launches
     chunks = sum(-(-sh.cap // HNSWIndex.SCAN_CHUNK) for sh in idx.shards)
     t, (ids, _) = timed_search(lambda: handle.search(qb, 10))
     check_results(f"sharded quaternary DenseIndexHandle.search b1024 ({SHARDS} shards of {N_SUB // SHARDS})",
                   ids, want, t, card, True)
     print(f"  subbyte_code_scores launches per batch {k2} ({chunks} chunks of {HNSWIndex.SCAN_CHUNK}), query "
-          f"unpack {unpack} [{card}]", flush=True)
-    if k2 != chunks or chunks != SHARDS:
-        fail(f"21b: K2 launched {k2} times per batch over {chunks} shard chunks, want {SHARDS}")
+          f"unpack {unpack}, group_topk {gt} [{card}]", flush=True)
+    if k2 != chunks or chunks != SHARDS or gt != chunks:
+        fail(f"21b: K2 launched {k2} times and group_topk {gt} per batch over {chunks} shard chunks, want {SHARDS}")
     return {"k2": subbyte_scan.subbyte_code_scores.launches, "unpack": subbyte_scan.unpack_query_codes.launches,
-            "k2_per_batch": k2, "unpack_per_batch": unpack}
+            "gt": group_topk.merge_group_topk.launches, "k2_per_batch": k2, "unpack_per_batch": unpack,
+            "gt_per_batch": gt}
 
 
 def sharded_flat_phase(x, q, truth, dev, card: str) -> None:
@@ -2576,9 +2710,9 @@ def main() -> None:
     if missing:
         fail(f"packages the port needs are missing: {missing}")
 
-    phase("1 build u8_bin_max and subbyte_code_scores")
+    phase("1 build u8_bin_max, subbyte_code_scores and group_topk")
     t0 = time.perf_counter()
-    libs = (u8_scan.LIBRARY, subbyte_scan.LIBRARY)
+    libs = (u8_scan.LIBRARY, subbyte_scan.LIBRARY, group_topk.LIBRARY)
     with concurrent.futures.ThreadPoolExecutor(len(libs)) as ex:  # one nvcc per source, together
         logs = list(ex.map(lambda lib: lib.build(), libs))
     print(f"built {', '.join(lib.library.name for lib in libs)} in {time.perf_counter() - t0:.2f} s")
@@ -2606,14 +2740,23 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     phase("5 K2 against plain")
-    k2_err, k2_timed, unpack_err, unpack_timed = k2_check(gen, dev, card)
-    print(f"K2 vs plain: max_abs_err {k2_err} (bit-exact required), query unpack {unpack_err}; res=2 B=1024 "
-          f"C=65536 Dp=768: kernel {k2_timed['ms']:.4f} ms, plain {k2_timed['plain_ms']:.3f} ms [{card}]")
+    k2_err, k2_timed, unpack_err, unpack_timed, fused_timed = k2_check(gen, dev, card)
+    gt_err, gt_timed = group_topk_check(gen, dev, card)
+    print(f"group_topk vs plain: max_abs_err {gt_err} (the sorted values bit for bit, ids on untied slots); B=1024 "
+          f"C=65536 k=200: kernel {gt_timed['ms']:.4f} ms, plain {gt_timed['plain_ms']:.3f} ms [{card}]")
+    print(f"K2 vs plain: max_abs_err {k2_err} (bit-exact required), query unpack {unpack_err}, fused entry "
+          f"{fused_timed['max_abs_err']} (scores bit for bit), group maxima {fused_timed['group_max_abs_err']}; "
+          f"res=2 B=1024 C=65536 Dp=768: kernel {k2_timed['ms']:.4f} ms, plain {k2_timed['plain_ms']:.3f} ms; "
+          f"fused {fused_timed['ms']:.4f} ms (bound {fused_timed['bound_ms']:.4f}), plain "
+          f"{fused_timed['plain_ms']:.3f} ms [{card}]")
 
     phase(f"6 quaternary DenseIndexHandle at {N} x {DIM}")
-    k2_launches, unpack_launches, q4_handle = subbyte_path(x, q, truth, dev, card)
-    k2_per_batch, unpack_per_batch = launches_per_batch(
-        [subbyte_scan.subbyte_code_scores, subbyte_scan.unpack_query_codes], lambda: q4_handle.search(q[:1024], 10))
+    k2_launches, unpack_launches, gt_launches, q4_handle = subbyte_path(x, q, truth, dev, card)
+    k2_per_batch, unpack_per_batch, gt_per_batch = launches_per_batch(
+        [subbyte_scan.subbyte_code_scores, subbyte_scan.unpack_query_codes, group_topk.merge_group_topk],
+        lambda: q4_handle.search(q[:1024], 10))
+    if gt_per_batch != k2_per_batch:
+        fail(f"group_topk launched {gt_per_batch} times in a b1024 batch of {k2_per_batch} K2 chunks")
 
     phase(f"9 REST ingest and search at {N_REST} x {DIM}")
     x_rest = np.round(x[:N_REST].cpu().numpy().astype(np.float64), 6)
@@ -2643,12 +2786,14 @@ def main() -> None:
         ctx.close()
     for name, n_launch in (("9 (K1)", rest["launches"]), ("10 (K1)", k1_restart), ("11 (K1)", served["k1"]),
                            ("11 (K2)", served["k2"]), ("11 (query unpack)", served["unpack"]),
+                           ("11 (group_topk)", served["gt"]),
                            ("12 (K1)", k1_grpc)):
         if n_launch == 0:
             fail(f"phase {name} never launched its kernel")
     launches += rest["launches"] + k1_restart + served["k1"] + k1_grpc
     k2_launches += served["k2"]
     unpack_launches += served["unpack"]
+    gt_launches += served["gt"]
 
     phase(f"13 sparse engine at {N_SP} docs")
     sparse_phase(dev, card)
@@ -2703,6 +2848,7 @@ def main() -> None:
     launches += sharded["launches"]
     k2_launches += sharded["k2"]
     unpack_launches += sharded["unpack"]
+    gt_launches += sharded["gt"]
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
     print(card)
@@ -2710,7 +2856,8 @@ def main() -> None:
     # C=1,048,576, Dp=768; K2 res=2, B=1024, C=65,536, Dp=768; the query
     # unpack res=2, B=1024, Dp=768): ms and plain_ms are single calls timed
     # alone, *_back_to_back the mean of calls queued back to back; library_ms
-    # is torch._int_mm, the product only; K1 at B=128 beside it
+    # is torch._int_mm, the product only; K1 at B=128 beside it, K2's fused
+    # entry (cosine, the scan's path) beside its raw one; launches count both
     print(json.dumps({"kernels": [{
         "name": "u8_bin_max",
         "route": "cuda",
@@ -2736,6 +2883,7 @@ def main() -> None:
         "sharded_launches_per_batch": sharded["k2_per_batch"],
         "max_abs_err": k2_err,
         **k2_timed,
+        "fused": fused_timed,
     }, {
         "name": "unpack_query_codes",
         "route": "cuda",
@@ -2747,6 +2895,17 @@ def main() -> None:
         "sharded_launches_per_batch": sharded["unpack_per_batch"],
         "max_abs_err": unpack_err,
         **unpack_timed,
+    }, {
+        "name": "group_topk",
+        "route": "cuda",
+        "source": "cosdata_tpu_torch/csrc/group_topk.cu",
+        # no TPU kernel: XLA's per-chunk selection and lax.top_k merge of the scan
+        "replaces": "cosdata_tpu/ops/flat_scan.py:83",
+        "launches": gt_launches,
+        "launches_per_batch": gt_per_batch,
+        "sharded_launches_per_batch": sharded["gt_per_batch"],
+        "max_abs_err": gt_err,
+        **gt_timed,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

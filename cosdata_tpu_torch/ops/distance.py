@@ -73,6 +73,17 @@ def diag_dot(qrows: torch.Tensor, crows: torch.Tensor) -> torch.Tensor:
     return torch.bmm(crows, qrows[:, :, None])[:, :, 0]
 
 
+def exact_diag_dot(qrows: torch.Tensor, crows: torch.Tensor) -> torch.Tensor:
+    """:func:`diag_dot` for the exact rerank. On the CPU the sum is taken in
+    f64 and rounded once: the CPU's f32 ``bmm`` can land an ulp off the
+    rounded sum where XLA's product does not (a row's product with itself,
+    whose euclidean residue |x|² + |x|² − 2x·x the root turns into ~5e-4);
+    the card keeps the f32 product."""
+    if qrows.device.type == "cuda":
+        return diag_dot(qrows, crows)
+    return diag_dot(qrows.to(torch.float64), crows.to(torch.float64)).to(torch.float32)
+
+
 def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
     """f32 square root rounded to nearest, as XLA's and CUDA's ``sqrtf``:
     the CPU's f32 ``torch.sqrt`` is up to an ulp off, so the root is taken

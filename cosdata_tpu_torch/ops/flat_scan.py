@@ -5,11 +5,14 @@ Two engines:
 - u8 stores take the codes engine (:func:`fused_flat_search_codes`);
 - sub-byte, f16 and f32 stores take the chunked scan with a running top-k
   (:func:`fused_flat_search`): each chunk of ``chunk`` rows is scored in
-  full (sub-byte code dots by kernel K2), masked, cut to its top-k and
-  merged into a running (B, k_fetch) top-k; an exact f32 rerank against
-  the raw rows follows. The reference's per-chunk
-  ``approx_max_k(recall_target=0.99)`` is an exact ``torch.topk`` here (on
-  XLA:CPU the reference's is exact too).
+  full, masked, cut to its top-k and merged into a running (B, k_fetch)
+  top-k; an exact f32 rerank against the raw rows follows. The
+  reference's per-chunk ``approx_max_k(recall_target=0.99)`` is an exact
+  selection here (on XLA:CPU the reference's is exact too). Sub-byte
+  chunks are scored and masked by kernel K2's fused entry, which also
+  writes the maxima of every 32 rows; the group_topk kernel then merges
+  the rows of the chunk's best groups into the running top-k
+  (``kernels/group_topk.py``).
 
 The codes engine's five stages:
 
@@ -45,7 +48,8 @@ from __future__ import annotations
 import torch
 
 from cosdata_tpu_torch.ops import distance as D
-from cosdata_tpu_torch.ops.kernels.subbyte_scan import unpack_query_codes
+from cosdata_tpu_torch.ops.kernels.group_topk import merge_group_topk
+from cosdata_tpu_torch.ops.kernels.subbyte_scan import subbyte_scores_fused, unpack_query_codes
 from cosdata_tpu_torch.ops.kernels.u8_scan import u8_bin_max_from_store
 from cosdata_tpu_torch.ops.quantize import QuantizedU8, quantize_u8
 from cosdata_tpu_torch.ops.storage import cos_or_dot, exact_scores, quantize_batch
@@ -241,23 +245,41 @@ def flat_scan_topk(metric: str, kind: str, d: int, k: int, chunk: int, q, store,
     the reference's selection, for callers whose results are the
     reference's edges (the graph's exact bulk build): u8 chunk scores
     rounded through bf16, as the reference's shortlist selects them, and
-    ties in index order (``lax.top_k``'s)."""
+    ties in index order (``lax.top_k``'s). Sub-byte cosine and dot chunks
+    come scored and masked from K2's fused entry; without ``ref_select``
+    the group_topk kernel merges them from their group maxima
+    (:func:`merge_group_topk`). Without ``ref_select`` (or hamming) the
+    running top-k is kept in no order and sorted once at the end."""
     capacity = valid.shape[0]
     b = q.mags.shape[0]
     top_s = torch.full((b, k), NEG_INF, dtype=torch.float32, device=valid.device)
     top_i = torch.full((b, k), -1, dtype=torch.int64, device=valid.device)
-    select = lax_top_k if ref_select or metric == "hamming" else (lambda s, kk: torch.topk(s, kk, dim=1))
+    ordered = ref_select or metric == "hamming"
+    select = lax_top_k if ordered else (lambda s, kk: torch.topk(s, kk, dim=1, sorted=False))
+    fused = kind == "subbyte" and metric in ("cosine", "dot")  # D.score raises for euclidean
     # sub-byte queries are unpacked once, for every chunk's K2 product
     q_codes = unpack_query_codes(q.planes) if kind == "subbyte" else None
     for start in range(0, capacity, chunk):
-        scores = D.score(metric, kind, q, _slice_store(store, kind, start, chunk), d, q_codes)  # (B, chunk)
-        scores = torch.where(valid[None, start : start + chunk], scores, NEG_INF)
-        if ref_select and kind == "u8":
-            scores = scores.to(torch.bfloat16).to(torch.float32)
+        sl = _slice_store(store, kind, start, chunk)
+        v = valid[start : start + chunk]
+        if fused:
+            scores, gmax = subbyte_scores_fused(metric, q, sl, d, v, q_codes)  # (B, chunk), (B, chunk / 32)
+            if not ref_select:
+                top_s, top_i = merge_group_topk(scores, gmax, top_s, top_i, start)
+                del scores, gmax
+                continue
+            del gmax
+        else:
+            scores = torch.where(v[None, :], D.score(metric, kind, q, sl, d, q_codes), NEG_INF)
+            if ref_select and kind == "u8":
+                scores = scores.to(torch.bfloat16).to(torch.float32)
         c_s, c_i = select(scores, min(k, chunk))
         del scores
         top_s, pos = select(torch.cat([top_s, c_s], dim=1), k)
         top_i = torch.gather(torch.cat([top_i, c_i + start], dim=1), 1, pos)
+    if not ordered:
+        top_s, pos = torch.sort(top_s, dim=1, descending=True)
+        top_i = torch.gather(top_i, 1, pos)
     top_i = torch.where(top_s > NEG_INF / 2, top_i, -1)
     return top_s, top_i
 

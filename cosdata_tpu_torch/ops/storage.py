@@ -634,7 +634,7 @@ def score_table(metric: str, kind: str, d: int, q, store) -> torch.Tensor:
 
 def exact_scores(metric: str, q: torch.Tensor, cand: torch.Tensor) -> torch.Tensor:
     """Exact f32 scores of candidates ``cand`` (Q, K, D) against ``q`` (Q, D)."""
-    dot = D.diag_dot(q, cand)
+    dot = D.exact_diag_dot(q, cand)
     qm = torch.linalg.vector_norm(q, dim=-1)
     cm = torch.linalg.vector_norm(cand, dim=-1)
     return cos_or_dot("euclidean" if metric == "hamming" else metric, dot, qm, cm)

@@ -6,8 +6,10 @@ is built by the package's ``CudaLibrary`` (in parallel) beside its copy in
 a scratch directory, swapped into the wrapper in place of the package's library,
 checked against the plain version (a timing-only variant is not exact and
 says so) and timed at the main path's shapes: K1 at B=1024 and 128, C =
-1,048,576, Dp=768, cosine; K2 at res=2, B=1024 and 128, C=65,536, Dp=768.
-Needs one CUDA card and nvcc; run from the repository root:
+1,048,576, Dp=768, cosine; K2 at res=2, B=1024 and 128, C=65,536, Dp=768,
+its raw int32 entry and its fused entry by dot and by cosine (a mask of
+every row; the fused scores held bit for bit). Needs one CUDA card and
+nvcc; run from the repository root:
 
     python3 -m cosdata_tpu_torch.tools.kernel_variants [variant ...]   # default: all
 
@@ -15,6 +17,8 @@ Variants:
   k1, k2          the package's kernels as they are
   k1_no_epilogue  K1 without the epilogue's arithmetic (timing only)
   k1_bitcast_i2f  K1 with the int -> float conversion a bit cast (timing only)
+  k2_fdiv         K2's fused cosine dividing by __fdiv_rn (exact, with its
+                  slow-path call) in place of the branch-free div_rn
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ VARIANTS = {
     "k2": (K2, []),
     "k1_no_epilogue": (K1, [("if (bin0 + bn >= n_bins) continue;", "if (B > 0) continue;")]),
     "k1_bitcast_i2f": (K1, [("__fmul_rn(a2, __int2float_rn(cc))", "__fmul_rn(a2, __int_as_float(cc))")]),
+    "k2_fdiv": (K2, [("div_rn(dot, den) : 0.f", "__fdiv_rn(dot, den) : 0.f")]),
 }
 
 
@@ -67,7 +72,8 @@ def main() -> None:
     gen = torch.Generator(device=dev).manual_seed(0)
     x = torch.rand((1_048_576, 768), generator=gen, device=dev) * 2 - 1
     store = quantize_u8(x, -0.6, 0.7, 768)
-    planes = quantize_subbyte(x[:65_536], 2, 768).planes
+    sub = quantize_subbyte(x[:65_536], 2, 768)
+    planes = sub.planes
     del x
     valid = torch.ones(store.data.shape[0], dtype=torch.bool, device=dev)
     valid[-1000:] = False
@@ -86,11 +92,21 @@ def main() -> None:
                         run = lambda: u8_scan.u8_bin_max("cosine", 32, t)  # noqa: E731
                         err = float((run() - u8_scan.u8_bin_max_plain("cosine", 32, t)).abs().max())
                     else:
-                        qp = quantize_subbyte(torch.rand((b, 768), generator=gen, device=dev) * 2 - 1, 2, 768).planes
+                        qs = quantize_subbyte(torch.rand((b, 768), generator=gen, device=dev) * 2 - 1, 2, 768)
+                        qp = qs.planes
                         run = lambda: subbyte_scan.subbyte_code_scores(qp, planes, 768)  # noqa: E731
                         err = float((run() - subbyte_scan.subbyte_code_scores_plain(qp, planes, 768)).abs().max())
                     ms = [device_ms(run, 10) for _ in range(2)]
                     print(f"  B={b}: max_abs_err {err:.3g}, {ms[0]:.4f}/{ms[1]:.4f} ms", flush=True)
+                    if kernel == K2:
+                        every = torch.ones(sub.planes.shape[1], dtype=torch.bool, device=dev)
+                        for metric in ("dot", "cosine"):
+                            run = lambda: subbyte_scan.subbyte_scores_fused(metric, qs, sub, 768, every)  # noqa: E731
+                            got = run()[0]
+                            want = subbyte_scan.subbyte_scores_fused_plain(metric, qs, sub, 768, every)[0]
+                            same = torch.equal(got.view(torch.int32), want.view(torch.int32))
+                            ms = [device_ms(run, 10) for _ in range(2)]
+                            print(f"  B={b} fused {metric}: bit for bit {same}, {ms[0]:.4f}/{ms[1]:.4f} ms", flush=True)
             finally:
                 module.LIBRARY = package_lib
 

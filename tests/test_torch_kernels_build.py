@@ -8,7 +8,7 @@ from pathlib import Path
 
 import pytest
 
-from cosdata_tpu_torch.ops.kernels import nvcc, subbyte_scan, u8_scan
+from cosdata_tpu_torch.ops.kernels import group_topk, nvcc, subbyte_scan, u8_scan
 
 
 def _touch(path: Path, mtime: float) -> Path:
@@ -68,7 +68,8 @@ def test_library_built_from_a_copy_of_the_sources(tmp_path):
     assert nvcc.needs_build(lib.library, lib.inputs())
 
 
-@pytest.mark.parametrize("library", [u8_scan.LIBRARY, subbyte_scan.LIBRARY], ids=lambda lib: lib.name)
+@pytest.mark.parametrize("library", [u8_scan.LIBRARY, subbyte_scan.LIBRARY, group_topk.LIBRARY],
+                         ids=lambda lib: lib.name)
 def test_every_entry_point_is_in_the_source(library):
     """Each entry point the wrapper binds is an extern "C" function of the
     source, with as many parameters as the wrapper passes."""

@@ -27,7 +27,9 @@ plain versions, bit for bit, timed likewise, and K2's fused entry (the
 score epilogue, the row mask and the group maxima in the kernel) against
 its plain version by cosine and dot under two masks, scores bit for bit,
 and group_topk against its plain version (values bit for bit, ids on
-untied slots); 6 the sub-byte path on the
+untied slots) at synthetic shapes, at every merge of the 1M quaternary
+scan (the first and last timed, their survivors printed) and on tied rows
+that take its route over memory; 6 the sub-byte path on the
 same corpus through a quaternary DenseIndexHandle at 1M rows (its graph
 built the same way), recall@10 and K2's launch count; 7 quaternary search
 semantics; 8 a quaternary FlatIndex at 262,144 rows (the reference's bench
@@ -159,7 +161,8 @@ try:
     from cosdata_tpu_torch.text import native as text_native
     from cosdata_tpu_torch.text import processing as text_processing
     from cosdata_tpu_torch.text.processing import process_text_query
-    from cosdata_tpu_torch.tools.measure import bound, card_line, clustered, cuda_ms, device_ms
+    from cosdata_tpu_torch.tools.measure import (bound, card_line, clustered, cuda_ms, device_ms, group_topk_bytes,
+                                                 quaternary_scan_merges)
     from cosdata_tpu_torch.tools.profile_dense import device_us
     from cosdata_tpu_torch.tools.text_check import UNICODE_CORPUS, differences, pipeline
     from cosdata_tpu_torch.tools.text_check import bm25_corpus as text_corpus
@@ -635,14 +638,41 @@ def group_topk_against_plain(scores, gmax, top_s, top_i, start: int, where: str)
     return err
 
 
-def group_topk_check(gen, dev, card: str) -> tuple[float, dict]:
+def group_topk_timing(what: str, scores, gmax, top_s, top_i, start: int, card: str) -> dict:
+    """group_topk and its plain version timed on one merge's inputs, beside
+    the bound for the bytes these inputs need (``measure.group_topk_bytes``)."""
+    out_s, _ = group_topk.merge_group_topk(scores, gmax, top_s, top_i, start)
+    (b, c), k = scores.shape, top_s.shape[1]
+    return kernel_timing(
+        f"group_topk B={b} C={c} k={k}, {what}", lambda: group_topk.merge_group_topk(scores, gmax, top_s, top_i, start),
+        lambda: group_topk.merge_group_topk_plain(scores, gmax, top_s, top_i, start), None, 5, 0.0,
+        group_topk_bytes(gmax, out_s), card)
+
+
+def group_topk_survivors(scores, gmax, top_s, top_i, start: int) -> torch.Tensor:
+    """Each row's survivors (the candidates at or above its floor) and its
+    buffer's capacity, (B, 2), as the kernel counts them."""
+    surv = torch.empty((scores.shape[0], 2), dtype=torch.int32, device=scores.device)
+    group_topk.merge_group_topk(scores, gmax, top_s, top_i, start, surv)
+    return surv
+
+
+def group_topk_check(gen, dev, card: str, x, q) -> tuple[float, dict]:
     """group_topk against its plain version: C = 65,536, 65,440 and 4,128
     (the ragged last group), k = 10, 200 and 2,000, B = 1 to 4,096, on
     scores in eighths (many ties) with a third of the rows and one whole
     group masked, merged into a running top-k half of whose entries are
-    empty (NEG_INF, id -1); then on K2's fused cosine scores of quaternary
-    rows, timed at the main path's B=1024, C=65,536, k=200. Returns
-    (max_abs_err, the timing)."""
+    empty (NEG_INF, id -1); at C = 131,100 (more groups than a warp holds
+    in registers) into an empty and then a warm running top; on K2's fused
+    cosine scores of quaternary rows
+    with a running top-k of the chunk's first half, timed at the main
+    path's B=1024, C=65,536, k=200; at every merge of the main path's scan
+    (the quaternary rows of ``x``, 16 chunks of 65,536, for the first 1,024
+    queries of ``q``), the first and the last timed and their survivors
+    printed; and on a launch in which every other row scores one value
+    throughout (6,400 tied survivors, past the buffer: the kernel's route
+    over memory). Returns (max_abs_err, the timing of the middle state
+    with the scan's first and last merges and the launch floor beside it)."""
     max_err = 0.0
     for c in (65_536, 65_440, 4_128):
         for k in (10, 200, 2_000):
@@ -661,17 +691,68 @@ def group_topk_check(gen, dev, card: str) -> tuple[float, dict]:
                 max_err = max(max_err, e)
                 del s, gmax, top_s, top_i
             print(f"  group_topk C={c:6d} k={k:5d} max_abs_err {' '.join(errs)}", flush=True)
+    # more groups than a warp holds in registers (G = 4,097): the maxima read from memory
+    c, b, k = 131_100, 64, 200
+    top_s = torch.full((b, k), NEG_INF, device=dev)
+    top_i = torch.full((b, k), -1, dtype=torch.int64, device=dev)
+    errs = []
+    for n in range(2):  # into the empty running top, then into the one it made
+        s = torch.randint(-400, 400, (b, c), generator=gen, device=dev).to(torch.float32) / 8
+        s[:, torch.rand(c, generator=gen, device=dev) < 0.3] = NEG_INF
+        gmax = torch.nn.functional.pad(s, (0, -c % 32), value=NEG_INF).view(b, -1, 32).amax(dim=2)
+        e = group_topk_against_plain(s, gmax, top_s, top_i, n * c, f"B={b} C={c} k={k}, merge {n}")
+        errs.append(f"merge {n}:{e:.3g}")
+        max_err = max(max_err, e)
+        top_s, top_i = group_topk.merge_group_topk(s, gmax, top_s, top_i, n * c)
+    print(f"  group_topk C={c} k={k} B={b} (the maxima read from memory) max_abs_err {' '.join(errs)}", flush=True)
+    del s, gmax, top_s, top_i
     c, b, k = 65_536, 1024, 200
     store = quantize_subbyte(torch.rand((c, DIM), generator=gen, device=dev) * 2 - 1, 2, DIM)
-    q = quantize_subbyte(torch.rand((b, DIM), generator=gen, device=dev) * 2 - 1, 2, DIM)
-    scores, gmax = subbyte_scan.subbyte_scores_fused("cosine", q, store, DIM)
+    qs = quantize_subbyte(torch.rand((b, DIM), generator=gen, device=dev) * 2 - 1, 2, DIM)
+    scores, gmax = subbyte_scan.subbyte_scores_fused("cosine", qs, store, DIM)
     top_s, top_i = torch.topk(scores[:, : c // 2], k, dim=1, sorted=False)  # a running top-k of the first half
     max_err = max(max_err, group_topk_against_plain(scores, gmax, top_s, top_i, c, "fused cosine scores"))
-    # read: the group maxima, the kept groups' rows and the running top-k; written: the new top-k
-    timed = kernel_timing(
-        f"group_topk B={b} C={c} k={k}", lambda: group_topk.merge_group_topk(scores, gmax, top_s, top_i, c),
-        lambda: group_topk.merge_group_topk_plain(scores, gmax, top_s, top_i, c), None, 5, 0.0,
-        4 * b * (c // 32) + 4 * b * k * 32 + 2 * 12 * b * k, card)
+    timed = group_topk_timing("a running top of the chunk's first half", scores, gmax, top_s, top_i, c, card)
+    del store, qs, scores, gmax, top_s, top_i
+
+    last = -(-len(x) // c) - 1
+    errs = []
+
+    def visit(i, scores, gmax, top_s, top_i, start):
+        nonlocal max_err
+        e = group_topk_against_plain(scores, gmax, top_s, top_i, start, f"scan chunk {i}")
+        errs.append(f"{i}:{e:.3g}")
+        max_err = max(max_err, e)
+        if i in (0, last):
+            surv = group_topk_survivors(scores, gmax, top_s, top_i, start)
+            n, cap = surv[:, 0], int(surv[0, 1])
+            name = "first_chunk" if i == 0 else "last_chunk"
+            print(f"  group_topk scan chunk {i} ({name}): survivors a row median {int(n.median())}, max "
+                  f"{int(n.max())}; k {k}, buffer {cap}, rows past it {int((n > cap).sum())}", flush=True)
+            timed[name] = group_topk_timing(f"scan chunk {i} of {last + 1}", scores, gmax, top_s, top_i, start, card)
+            timed[name]["survivors_median"], timed[name]["survivors_max"] = int(n.median()), int(n.max())
+
+    quaternary_scan_merges(x, q[:b], k, visit, c)
+    if len(errs) != last + 1:
+        fail(f"group_topk: the scan ran {len(errs)} merges, not {last + 1}")
+    print(f"  group_topk on the scan's merges (1M quaternary rows, b{b}, k={k}) max_abs_err {' '.join(errs)}",
+          flush=True)
+
+    s = torch.randn((b, c), generator=gen, device=dev)
+    s[::2] = 0.5  # every other row tied throughout
+    gmax = s.view(b, -1, 32).amax(dim=2)
+    top_s = torch.full((b, k), NEG_INF, device=dev)
+    top_i = torch.full((b, k), -1, dtype=torch.int64, device=dev)
+    max_err = max(max_err, group_topk_against_plain(s, gmax, top_s, top_i, 0, "tied rows"))
+    surv = group_topk_survivors(s, gmax, top_s, top_i, 0)
+    over = surv[:, 0] > surv[:, 1]
+    if not bool(over[::2].all()) or bool(over[1::2].any()):
+        fail(f"group_topk's tied rows did not all overflow the buffer, or untied ones did: {surv[:4].tolist()}")
+    print(f"  group_topk tied rows: survivors {int(surv[0, 0])} past the buffer's {int(surv[0, 1])} on every tied "
+          f"row (the route over memory), the others within it; equal to plain", flush=True)
+    one = torch.zeros(1, device=dev)
+    timed["launch_floor_ms"] = device_ms(lambda: one.fill_(1.0), 20)
+    print(f"  launch floor (a 1-element fill, back to back) {timed['launch_floor_ms']:.4f} ms [{card}]", flush=True)
     return max_err, timed
 
 
@@ -2741,9 +2822,12 @@ def main() -> None:
 
     phase("5 K2 against plain")
     k2_err, k2_timed, unpack_err, unpack_timed, fused_timed = k2_check(gen, dev, card)
-    gt_err, gt_timed = group_topk_check(gen, dev, card)
+    gt_err, gt_timed = group_topk_check(gen, dev, card, x, q)
+    first, last = gt_timed["first_chunk"], gt_timed["last_chunk"]
     print(f"group_topk vs plain: max_abs_err {gt_err} (the sorted values bit for bit, ids on untied slots); B=1024 "
-          f"C=65536 k=200: kernel {gt_timed['ms']:.4f} ms, plain {gt_timed['plain_ms']:.3f} ms [{card}]")
+          f"C=65536 k=200: kernel {gt_timed['ms']:.4f} ms, plain {gt_timed['plain_ms']:.3f} ms; the scan's first "
+          f"merge {first['ms']:.4f} ms (back to back {first['ms_back_to_back']:.4f}, bound {first['bound_ms']:.4f}), "
+          f"last {last['ms']:.4f} ms ({last['ms_back_to_back']:.4f}, bound {last['bound_ms']:.4f}) [{card}]")
     print(f"K2 vs plain: max_abs_err {k2_err} (bit-exact required), query unpack {unpack_err}, fused entry "
           f"{fused_timed['max_abs_err']} (scores bit for bit), group maxima {fused_timed['group_max_abs_err']}; "
           f"res=2 B=1024 C=65536 Dp=768: kernel {k2_timed['ms']:.4f} ms, plain {k2_timed['plain_ms']:.3f} ms; "

@@ -238,7 +238,7 @@ def _slice_store(store, kind: str, start: int, chunk: int):
 
 
 def flat_scan_topk(metric: str, kind: str, d: int, k: int, chunk: int, q, store, valid: torch.Tensor,
-                   ref_select: bool = False):
+                   ref_select: bool = False, merge=merge_group_topk):
     """Returns (scores (B, k), ids (B, k)) over the whole store, ids -1 where
     nothing was found; ``kind`` in {"u8", "subbyte", "float"}, capacity a
     multiple of ``chunk``, ``valid`` (capacity,) bool. ``ref_select`` takes
@@ -248,8 +248,10 @@ def flat_scan_topk(metric: str, kind: str, d: int, k: int, chunk: int, q, store,
     ties in index order (``lax.top_k``'s). Sub-byte cosine and dot chunks
     come scored and masked from K2's fused entry; without ``ref_select``
     the group_topk kernel merges them from their group maxima
-    (:func:`merge_group_topk`). Without ``ref_select`` (or hamming) the
-    running top-k is kept in no order and sorted once at the end."""
+    (:func:`merge_group_topk`, or ``merge``, called as it is: a tool
+    wraps it to read each merge's inputs). Without ``ref_select`` (or
+    hamming) the running top-k is kept in no order and sorted once at the
+    end."""
     capacity = valid.shape[0]
     b = q.mags.shape[0]
     top_s = torch.full((b, k), NEG_INF, dtype=torch.float32, device=valid.device)
@@ -265,7 +267,7 @@ def flat_scan_topk(metric: str, kind: str, d: int, k: int, chunk: int, q, store,
         if fused:
             scores, gmax = subbyte_scores_fused(metric, q, sl, d, v, q_codes)  # (B, chunk), (B, chunk / 32)
             if not ref_select:
-                top_s, top_i = merge_group_topk(scores, gmax, top_s, top_i, start)
+                top_s, top_i = merge(scores, gmax, top_s, top_i, start)
                 del scores, gmax
                 continue
             del gmax

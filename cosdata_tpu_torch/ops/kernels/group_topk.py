@@ -20,7 +20,7 @@ from cosdata_tpu_torch.ops.kernels.subbyte_scan import GROUP
 from cosdata_tpu_torch.ops.topk import NEG_INF
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-LIBRARY = CudaLibrary("group_topk", {"launch": [_P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _L, _P]})
+LIBRARY = CudaLibrary("group_topk", {"launch": [_P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _L, _P, _P]})
 
 
 def group_topk(scores: torch.Tensor, gmax: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -51,7 +51,7 @@ def merge_group_topk_plain(scores: torch.Tensor, gmax: torch.Tensor, top_s: torc
 
 
 def merge_group_topk(scores: torch.Tensor, gmax: torch.Tensor, top_s: torch.Tensor, top_i: torch.Tensor,
-                     start: int) -> tuple[torch.Tensor, torch.Tensor]:
+                     start: int, survivors: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """The k best of the running top-k (``top_s`` (B, k) f32 values,
     ``top_i`` (B, k) int64 ids) and a chunk's rows, taken from its k best
     32-row groups: ``scores`` (B, C) and ``gmax`` (B, ceil(C / GROUP)) as
@@ -60,15 +60,23 @@ def merge_group_topk(scores: torch.Tensor, gmax: torch.Tensor, top_s: torch.Tens
     exact up to ties.
 
     CPU tensors take :func:`merge_group_topk_plain`; CUDA tensors launch the
-    kernel (counted in ``merge_group_topk.launches``) or raise."""
+    kernel (counted in ``merge_group_topk.launches``) or raise. The kernel
+    writes each row's survivors (the candidates at or above its floor) and
+    its buffer's capacity into ``survivors`` (B, 2) int32, where one is
+    given: a row with more survivors than that took its route over memory.
+    The plain version has no survivors; CPU tensors refuse the argument."""
     if scores.device.type == "cpu":
+        if survivors is not None:
+            raise ValueError("survivors: the plain version has none")
         return merge_group_topk_plain(scores, gmax, top_s, top_i, start)
     b, c = scores.shape
     k = top_s.shape[1]
     dev = scores.device
-    for name, x, shape, dtype in (("scores", scores, (b, c), torch.float32),
-                                  ("gmax", gmax, (b, -(-c // GROUP)), torch.float32),
-                                  ("top_s", top_s, (b, k), torch.float32), ("top_i", top_i, (b, k), torch.int64)):
+    args = [("scores", scores, (b, c), torch.float32), ("gmax", gmax, (b, -(-c // GROUP)), torch.float32),
+            ("top_s", top_s, (b, k), torch.float32), ("top_i", top_i, (b, k), torch.int64)]
+    if survivors is not None:
+        args.append(("survivors", survivors, (b, 2), torch.int32))
+    for name, x, shape, dtype in args:
         if x.shape != shape or x.dtype != dtype or x.device != dev or not x.is_contiguous():
             raise ValueError(f"{name}: want contiguous {dtype} {shape} on {dev}, got {x.dtype} {tuple(x.shape)} "
                              f"on {x.device}")
@@ -78,7 +86,8 @@ def merge_group_topk(scores: torch.Tensor, gmax: torch.Tensor, top_s: torch.Tens
         return out_s, out_i
     with torch.cuda.device(dev):
         LIBRARY.launch(scores.data_ptr(), gmax.data_ptr(), top_s.data_ptr(), top_i.data_ptr(), out_s.data_ptr(),
-                       out_i.data_ptr(), b, c, gmax.shape[1], k, start, torch.cuda.current_stream().cuda_stream)
+                       out_i.data_ptr(), b, c, gmax.shape[1], k, start,
+                       None if survivors is None else survivors.data_ptr(), torch.cuda.current_stream().cuda_stream)
     merge_group_topk.launches += 1
     return out_s, out_i
 

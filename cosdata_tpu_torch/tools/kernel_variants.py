@@ -8,8 +8,11 @@ checked against the plain version (a timing-only variant is not exact and
 says so) and timed at the main path's shapes: K1 at B=1024 and 128, C =
 1,048,576, Dp=768, cosine; K2 at res=2, B=1024 and 128, C=65,536, Dp=768,
 its raw int32 entry and its fused entry by dot and by cosine (a mask of
-every row; the fused scores held bit for bit). Needs one CUDA card and
-nvcc; run from the repository root:
+every row; the fused scores held bit for bit); group_topk at B=1024,
+C=65,536, k=200 on the first and the last merge of a quaternary cosine
+scan of 1,000,000 clustered rows (``measure.quaternary_scan_merges``),
+its sorted values held bit for bit against its plain version. Needs one
+CUDA card and nvcc; run from the repository root:
 
     python3 -m cosdata_tpu_torch.tools.kernel_variants [variant ...]   # default: all
 
@@ -19,11 +22,20 @@ Variants:
   k1_bitcast_i2f  K1 with the int -> float conversion a bit cast (timing only)
   k2_fdiv         K2's fused cosine dividing by __fdiv_rn (exact, with its
                   slow-path call) in place of the branch-free div_rn
+  gt              group_topk as it is
+  gt_slack256     a survivor buffer of k + 256 entries, not k + 512
+  gt_no_drop      at most 256 survivors held in registers always take the
+                  select, never the rounds that drop the smallest
+  gt_buffer       every row within the buffer selects over the buffer: no
+                  survivors held in registers
+  gt_trace        group_topk timing each row's warp in four phases (the
+                  global timer) into an output of its own (timing only)
 """
 
 from __future__ import annotations
 
 import concurrent.futures
+import ctypes
 import shutil
 import sys
 import tempfile
@@ -31,19 +43,44 @@ from pathlib import Path
 
 import torch
 
-from cosdata_tpu_torch.ops.kernels import nvcc, subbyte_scan, u8_scan
+from cosdata_tpu_torch.ops.kernels import group_topk, nvcc, subbyte_scan, u8_scan
 from cosdata_tpu_torch.ops.quantize import quantize_subbyte, quantize_u8
-from cosdata_tpu_torch.tools.measure import card_line, device_ms
+from cosdata_tpu_torch.tools.measure import card_line, clustered, device_ms, quaternary_scan_merges
 
 CSRC = Path(nvcc.__file__).resolve().parents[2] / "csrc"
-K1, K2 = "u8_bin_max", "subbyte_code_scores"
+K1, K2, GT = "u8_bin_max", "subbyte_code_scores", "group_topk"
+MODULES = {K1: u8_scan, K2: subbyte_scan, GT: group_topk}
 VARIANTS = {
     "k1": (K1, []),
     "k2": (K2, []),
     "k1_no_epilogue": (K1, [("if (bin0 + bn >= n_bins) continue;", "if (B > 0) continue;")]),
     "k1_bitcast_i2f": (K1, [("__fmul_rn(a2, __int2float_rn(cc))", "__fmul_rn(a2, __int_as_float(cc))")]),
     "k2_fdiv": (K2, [("div_rn(dot, den) : 0.f", "__fdiv_rn(dot, den) : 0.f")]),
+    "gt": (GT, []),
+    "gt_slack256": (GT, [("constexpr int kSlack = 512;", "constexpr int kSlack = 256;")]),
+    "gt_no_drop": (GT, [("if (n - k <= 32) {", "if (false) {")]),
+    "gt_buffer": (GT, [("if (n <= 8 * 32) {", "if (false) {")]),
 }
+#: gt_trace adds an output, trace (B, 4) int32, the last argument of the
+#: launch: each row's warp's time (the global timer, ns) in four phases: T,
+#: the candidate groups, the survivors, the select and the output
+_STAMP = "  asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"({}));\n"
+TRACE = [("long long start, int cap, int* __restrict__ survivors) {",
+          "long long start, int cap, int* __restrict__ survivors, int* __restrict__ trace) {"),
+         ("void* survivors, void* stream) {", "void* survivors, void* stream, void* trace) {"),
+         ("start, cap, static_cast<int*>(survivors));", "start, cap, static_cast<int*>(survivors), static_cast<int*>(trace));"),
+         ("  // the running top and the group maxima into shared memory",
+          "  unsigned long long t0, t1, t2, t3, t4;\n" + _STAMP.format("t0") +
+          "  // the running top and the group maxima into shared memory"),
+         ("  // the candidate groups: those reaching T", _STAMP.format("t1") + "  // the candidate groups: those reaching T"),
+         ("  // the survivors: the running entries", _STAMP.format("t2") + "  // the survivors: the running entries"),
+         ("  // the k best survivors", _STAMP.format("t3") + "  // the k best survivors"),
+         ("start + row_of(i);\n    });\n  }\n}",
+          "start + row_of(i);\n    });\n  }\n" + _STAMP.format("t4") +
+          "  if (lane == 0) {\n"
+          "    trace[4 * q] = static_cast<int>(t1 - t0);\n    trace[4 * q + 1] = static_cast<int>(t2 - t1);\n"
+          "    trace[4 * q + 2] = static_cast<int>(t3 - t2);\n    trace[4 * q + 3] = static_cast<int>(t4 - t3);\n  }\n}")]
+VARIANTS["gt_trace"] = (GT, TRACE)
 
 
 def build(name: str, root: Path) -> tuple[str, nvcc.CudaLibrary, str]:
@@ -58,9 +95,28 @@ def build(name: str, root: Path) -> tuple[str, nvcc.CudaLibrary, str]:
             raise SystemExit(f"FAIL: variant {name}: {old!r} is not in {cu.name}")
         text = text.replace(old, new)
     cu.write_text(text)
-    module = u8_scan if kernel == K1 else subbyte_scan
-    lib = nvcc.CudaLibrary(kernel, module.LIBRARY.entries, source=cu, library=src / f"lib{kernel}.so")
+    entries = MODULES[kernel].LIBRARY.entries
+    if name == "gt_trace":
+        entries = {"launch": [*entries["launch"], ctypes.c_void_p]}
+    lib = nvcc.CudaLibrary(kernel, entries, source=cu, library=src / f"lib{kernel}.so")
     return name, lib, lib.build()
+
+
+def trace_line(lib: nvcc.CudaLibrary, scores, gmax, top_s, top_i, start: int) -> str:
+    """gt_trace's launch on one merge's inputs: its values against the
+    plain version's, and the median phases of a row's warp."""
+    b, k = top_s.shape
+    out_s, out_i = torch.empty_like(top_s), torch.empty_like(top_i)
+    trace = torch.zeros((b, 4), dtype=torch.int32, device=scores.device)
+    lib.launch(scores.data_ptr(), gmax.data_ptr(), top_s.data_ptr(), top_i.data_ptr(), out_s.data_ptr(),
+               out_i.data_ptr(), b, scores.shape[1], gmax.shape[1], k, start, None,
+               torch.cuda.current_stream().cuda_stream, trace.data_ptr())
+    want = torch.sort(group_topk.merge_group_topk_plain(scores, gmax, top_s, top_i, start)[0], dim=1).values
+    same = torch.equal(torch.sort(out_s, dim=1).values.view(torch.int32), want.view(torch.int32))
+    us = trace.double() / 1000
+    med = [f"{float(x):.2f}" for x in us.median(0).values]
+    return (f"values bit for bit {same}; a row's warp, median us: T {med[0]}, groups {med[1]}, survivors {med[2]}, "
+            f"select and output {med[3]}; total {float(us.sum(1).median()):.2f}")
 
 
 def main() -> None:
@@ -70,21 +126,41 @@ def main() -> None:
     dev = torch.device("cuda")
     card = card_line()
     gen = torch.Generator(device=dev).manual_seed(0)
-    x = torch.rand((1_048_576, 768), generator=gen, device=dev) * 2 - 1
-    store = quantize_u8(x, -0.6, 0.7, 768)
-    sub = quantize_subbyte(x[:65_536], 2, 768)
-    planes = sub.planes
-    del x
-    valid = torch.ones(store.data.shape[0], dtype=torch.bool, device=dev)
-    valid[-1000:] = False
+    kernels = {VARIANTS[name][0] for name in names}
+    if kernels & {K1, K2}:
+        x = torch.rand((1_048_576, 768), generator=gen, device=dev) * 2 - 1
+        store = quantize_u8(x, -0.6, 0.7, 768)
+        sub = quantize_subbyte(x[:65_536], 2, 768)
+        planes = sub.planes
+        del x
+        valid = torch.ones(store.data.shape[0], dtype=torch.bool, device=dev)
+        valid[-1000:] = False
+    if GT in kernels:  # the inputs of the scan's first and last merges, made by the package's kernels
+        xc, qc = clustered(1_000_000, 1024, 768, gen, dev)
+        merges = {}
+        quaternary_scan_merges(xc, qc, 200, lambda i, *m: merges.update({i: m}) if i in (0, 15) else None)
+        del xc, qc
     with tempfile.TemporaryDirectory() as tmp, concurrent.futures.ThreadPoolExecutor(len(names)) as ex:
         for name, lib, log in ex.map(lambda n: build(n, Path(tmp)), names):
             kernel = VARIANTS[name][0]
-            module = u8_scan if kernel == K1 else subbyte_scan
+            module = MODULES[kernel]
             package_lib, module.LIBRARY = module.LIBRARY, lib  # the wrapper launches the variant
             try:
                 regs = [line.strip() for line in log.splitlines() if "registers" in line or "spill" in line]
                 print(f"== {name} [{card}]: " + "; ".join(regs[:2]), flush=True)
+                if kernel == GT:
+                    for (scores, gmax, top_s, top_i, start), where in zip(merges.values(), ("first", "last")):
+                        if name == "gt_trace":
+                            print(f"  {where} merge: {trace_line(lib, scores, gmax, top_s, top_i, start)}", flush=True)
+                            continue
+                        run = lambda: group_topk.merge_group_topk(scores, gmax, top_s, top_i, start)  # noqa: E731
+                        got = torch.sort(run()[0], dim=1).values
+                        want = torch.sort(group_topk.merge_group_topk_plain(scores, gmax, top_s, top_i, start)[0],
+                                          dim=1).values
+                        same = torch.equal(got.view(torch.int32), want.view(torch.int32))
+                        ms = [device_ms(run, 20) for _ in range(2)]
+                        print(f"  {where} merge: values bit for bit {same}, {ms[0]:.4f}/{ms[1]:.4f} ms", flush=True)
+                    continue
                 for b in (1024, 128):
                     if kernel == K1:
                         q = quantize_u8(torch.rand((b, 768), generator=gen, device=dev) * 2 - 1, -0.6, 0.7, 768)

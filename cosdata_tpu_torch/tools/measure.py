@@ -81,3 +81,38 @@ def clustered(n: int, nq: int, d: int, gen: torch.Generator, dev, *more: int):
         return x / torch.linalg.vector_norm(x, dim=1, keepdim=True)
 
     return (rows(n), rows(nq), *(rows(m) for m in more))
+
+
+def quaternary_scan_merges(x: torch.Tensor, q: torch.Tensor, k: int, visit, chunk: int = 1 << 16) -> None:
+    """Runs ``ops/flat_scan.py:flat_scan_topk`` itself, as a quaternary
+    cosine scan of the rows ``x`` (n, d) for the queries ``q`` (both
+    quantized as ``storage.quantize_batch`` quantizes them; a capacity of
+    whole chunks, the rows past n masked), and calls ``visit(chunk index,
+    scores, gmax, top_s, top_i, start)`` with each group_topk merge's inputs
+    before the merge runs: K2's fused scores and maxima and the running
+    top-k, empty before the first. Imports the package when called, so that
+    a tool may take it from another checkout."""
+    from cosdata_tpu_torch.ops import flat_scan, storage
+    from cosdata_tpu_torch.ops.kernels import group_topk
+
+    n, d = x.shape
+    capacity = -(-n // chunk) * chunk
+    store = storage.quantize_batch(torch.nn.functional.pad(x, (0, 0, 0, capacity - n)), None, None, "subbyte", 2, d)
+    qs = storage.quantize_batch(q, None, None, "subbyte", 2, d)
+    valid = torch.arange(capacity, device=x.device) < n
+
+    def merge(scores, gmax, top_s, top_i, start):
+        visit(start // chunk, scores, gmax, top_s, top_i, start)
+        return group_topk.merge_group_topk(scores, gmax, top_s, top_i, start)
+
+    flat_scan.flat_scan_topk("cosine", "subbyte", d, k, chunk, qs, store, valid, merge=merge)
+
+
+def group_topk_bytes(gmax: torch.Tensor, out_s: torch.Tensor) -> int:
+    """The bytes one group_topk merge must move: the group maxima and the
+    running top (f32 values, int64 ids) read, the new top written, and the
+    32 scores of every group whose maximum reaches its row's new k-th value
+    (no other group holds a row of the result)."""
+    b, g = gmax.shape
+    kth = out_s.min(dim=1, keepdim=True).values
+    return 4 * b * g + 2 * 12 * out_s.numel() + 4 * 32 * int((gmax >= kth).sum())

@@ -12,8 +12,9 @@ Phases: 0 environment; 1 build the kernels (u8_bin_max, K1;
 subbyte_code_scores, K2; group_topk, the sub-byte scan's per-chunk top-k)
 from the checkout's sources, in parallel; 2 K1
 against its plain PyTorch version at the u8 path's shapes and the tiles'
-edges, by cosine, dot and euclidean, timed beside its bound and
-torch._int_mm (cosine at B=1024 and 128, euclidean at B=1024); 3 the u8
+edges and at Dp=4,096, by cosine, dot and euclidean, bins bit for bit,
+timed beside its bound and torch._int_mm (cosine at B=1024 and 128,
+euclidean at B=1024 at C=1,048,576 and 65,536); 3 the u8
 path at 1M x 768: a DenseIndexHandle filled as the reference's bench fills
 it (983,616 rows in one call: the graph's bulk build), one search, then 16
 insertion waves of 1,024 rows, searched through DenseIndexHandle.search
@@ -179,7 +180,6 @@ N_SUB = 262_144
 ADD_BATCH = 131072
 #: rows the 1M handles take by insertion waves after their bulk build
 WAVE_ROWS = 16384
-RTOL, ATOL = 2e-5, 1e-5
 MIN_RECALL = 0.99
 #: the REST phases: collection rows (one scan chunk, so the capacity takes
 #: the K1 engine), rows per upsert request, queries and queries per request
@@ -232,8 +232,13 @@ def timed_search(fn, reps: int = 5) -> tuple[float, object]:
 
 
 #: K1's timed shapes: B=1024 (the bench batch) and B=128 (one served
-#: request), both at C=1,048,576, Dp=768, cosine; euclidean at B=1024
-K1_TIMED_CASES = (("cosine", 1024), ("cosine", 128), ("euclidean", 1024))
+#: request), both at C=1,048,576, Dp=768, cosine; euclidean at B=1024, at
+#: C=1,048,576 (a resident scan) and C=65,536 (a streamed or approx chunk)
+K1_TIMED_CASES = {("cosine", 1024, 1_048_576): 1024, ("cosine", 128, 1_048_576): 128,
+                  ("euclidean", 1024, 1_048_576): "euclidean", ("euclidean", 1024, 65_536): "euclidean_c65536"}
+#: K1's checked shapes (C, Dp): B = 1, 100 and 128 and C = 4,128 hit the
+#: tiles' edges; Dp = 4,096 is a wide row
+K1_CHECKED = [(c, dp) for c in (4_128, 65_536, 1_048_576) for dp in (128, 768)] + [(4_128, 4_096)]
 
 
 def kernel_timing(what: str, kernel, plain, library, plain_reps: int, ops: float, nbytes: float,
@@ -263,8 +268,8 @@ def kernel_timing(what: str, kernel, plain, library, plain_reps: int, ops: float
 
 def k1_against_plain(metric: str, t, where: str) -> float:
     """K1 against its plain version on the terms ``t``: the same shape,
-    invalid bins sunk, live bins within RTOL/ATOL. Returns the max abs
-    error; fails otherwise."""
+    invalid bins sunk, live bins bit for bit. Returns the max abs error
+    (0); fails otherwise."""
     got = u8_scan.u8_bin_max(metric, 32, t)
     want = u8_scan.u8_bin_max_plain(metric, 32, t)
     torch.cuda.synchronize(t.codes.device)
@@ -275,49 +280,50 @@ def k1_against_plain(metric: str, t, where: str) -> float:
         fail(f"invalid bins not sunk at {where}")
     err = (got[live] - want[live]).abs()
     e = float(err.max()) if err.numel() else 0.0
-    if bool((err > ATOL + RTOL * want[live].abs()).any()):
-        fail(f"kernel disagrees with plain at {where}: {e}")
+    if not torch.equal(got[live], want[live]):
+        fail(f"kernel's {metric} bins differ from plain's at {where}: max abs {e}")
     return e
 
 
 def kernel_check(gen, dev, card: str) -> tuple[float, dict]:
-    """K1 against its plain version at the listed shapes (B = 1, 100 and 128
-    and C = 4,128 hit the tiles' edges), by cosine, dot and euclidean;
-    returns (max_abs_err, timings by B for cosine and "euclidean" at
-    B=1024)."""
+    """K1 against its plain version at the K1_CHECKED shapes, by cosine,
+    dot and euclidean; returns (max_abs_err, timings keyed as in
+    K1_TIMED_CASES)."""
     max_err = 0.0
     timed = {}
-    for c in (4_128, 65_536, 1_048_576):
-        for dp in (128, 768):
-            d_true = dp - 28 if dp == 128 else dp
-            x = torch.rand((c, dp), generator=gen, device=dev) * 2 - 1
-            store = quantize_u8(x, -0.6, 0.7, d_true)
-            del x
-            valid = torch.ones(c, dtype=torch.bool, device=dev)
-            valid[5] = False
-            valid[c - 1000 :] = False  # ragged valid tail
-            valid[c // 2 : c // 2 + 64] = False  # two whole invalid bins
-            for metric in ("cosine", "dot", "euclidean"):
-                errs = []
-                for b in (1, 8, 100, 128, 1024, 4096):
-                    q = quantize_u8(torch.rand((b, dp), generator=gen, device=dev) * 2 - 1, -0.6, 0.7, d_true)
-                    t = u8_scan.bin_max_terms(metric, q, store, valid, dp)
-                    e = k1_against_plain(metric, t, f"B={b} C={c} Dp={dp} {metric}")
-                    errs.append(f"B={b}:{e:.3g}")
-                    max_err = max(max_err, e)
-                    if (c, dp) == (1_048_576, 768) and (metric, b) in K1_TIMED_CASES:
-                        # codes and query codes read once, the row and query terms, the bins
-                        # written; euclidean's f32 epilogue is ~12 operations per score
-                        timed[b if metric == "cosine" else metric] = kernel_timing(
-                            f"B={b} C={c} Dp={dp} {metric}", lambda: u8_scan.u8_bin_max(metric, 32, t),
-                            lambda: u8_scan.u8_bin_max_plain(metric, 32, t),
-                            lambda: torch._int_mm(t.q_codes, t.codes.t()), 3, 2.0 * b * c * dp,
-                            c * dp + b * dp + 12 * c + 8 * b + 4 * b * (c // 32), card,
-                            f32_ops=12.0 * b * c if metric == "euclidean" else 0.0)
-                    del t
-                print(f"  C={c:8d} Dp={dp:4d} {metric:6s} max_abs_err {' '.join(errs)}", flush=True)
-            del store
-            torch.cuda.empty_cache()
+    for c, dp in K1_CHECKED:
+        d_true = dp - 28 if dp == 128 else dp
+        x = torch.rand((c, dp), generator=gen, device=dev) * 2 - 1
+        store = quantize_u8(x, -0.6, 0.7, d_true)
+        del x
+        valid = torch.ones(c, dtype=torch.bool, device=dev)
+        valid[5] = False
+        valid[c - 1000 :] = False  # ragged valid tail
+        valid[c // 2 : c // 2 + 64] = False  # two whole invalid bins
+        for metric in ("cosine", "dot", "euclidean"):
+            errs = []
+            for b in (1, 8, 100, 128, 1024, 4096):
+                q = quantize_u8(torch.rand((b, dp), generator=gen, device=dev) * 2 - 1, -0.6, 0.7, d_true)
+                t = u8_scan.bin_max_terms(metric, q, store, valid, dp)
+                e = k1_against_plain(metric, t, f"B={b} C={c} Dp={dp} {metric}")
+                errs.append(f"B={b}:{e:.3g}")
+                max_err = max(max_err, e)
+                key = K1_TIMED_CASES.get((metric, b, c)) if dp == 768 else None
+                if key is not None:
+                    # codes and query codes read once, the row and query terms, the bins
+                    # written; euclidean's epilogue does 10 f32 operations a score (u, dot,
+                    # d2 with its fused multiply-add counted as two, the min) beside one
+                    # int -> float conversion and one integer add
+                    timed[key] = kernel_timing(
+                        f"B={b} C={c} Dp={dp} {metric}", lambda: u8_scan.u8_bin_max(metric, 32, t),
+                        lambda: u8_scan.u8_bin_max_plain(metric, 32, t),
+                        lambda: torch._int_mm(t.q_codes, t.codes.t()), 3, 2.0 * b * c * dp,
+                        c * dp + b * dp + 12 * c + (12 if metric == "euclidean" else 8) * b + 4 * b * (c // 32), card,
+                        f32_ops=10.0 * b * c if metric == "euclidean" else 0.0)
+                del t
+            print(f"  C={c:8d} Dp={dp:4d} {metric:6s} (bit for bit) max_abs_err {' '.join(errs)}", flush=True)
+        del store
+        torch.cuda.empty_cache()
     return max_err, timed
 
 
@@ -2509,7 +2515,7 @@ def shard_k1_check(idx, qb, mask: np.ndarray, card: str) -> None:
             del t
     print(f"  K1 against plain on each shard's store (C={[sh.cap for sh in idx.shards]}, rows "
           f"{[sh.n for sh in idx.shards]}, unmasked and masked): max_abs_err {max(errs):.3g} "
-          f"(rtol {RTOL}, atol {ATOL}) [{card}]", flush=True)
+          f"(bins bit for bit) [{card}]", flush=True)
 
 
 def sharded_u8_phase(x, q, truth, dev, card: str) -> dict:
@@ -2805,10 +2811,10 @@ def main() -> None:
     phase("2 kernel against plain")
     gen = torch.Generator(device=dev).manual_seed(SEED)
     max_err, k1_timed = kernel_check(gen, dev, card)
-    print(f"kernel vs plain: max_abs_err {max_err:.3g} (rtol {RTOL}, atol {ATOL}); B=1024 C=1048576 Dp=768: "
-          f"kernel {k1_timed[1024]['ms']:.4f} ms, plain {k1_timed[1024]['plain_ms']:.3f} ms; B=128: kernel "
-          f"{k1_timed[128]['ms']:.4f} ms; euclidean B=1024: kernel {k1_timed['euclidean']['ms']:.4f} ms, plain "
-          f"{k1_timed['euclidean']['plain_ms']:.3f} ms [{card}]")
+    print(f"kernel vs plain: max_abs_err {max_err:.3g} (bins bit for bit); B=1024 C=1048576 "
+          f"Dp=768: kernel {k1_timed[1024]['ms']:.4f} ms, plain {k1_timed[1024]['plain_ms']:.3f} ms; B=128: kernel "
+          f"{k1_timed[128]['ms']:.4f} ms; euclidean B=1024: kernel {k1_timed['euclidean']['ms']:.4f} ms (C=65536 "
+          f"{k1_timed['euclidean_c65536']['ms']:.4f}), plain {k1_timed['euclidean']['plain_ms']:.3f} ms [{card}]")
 
     phase(f"3 main path at {N} x {DIM}")
     t0 = time.perf_counter()
@@ -2955,7 +2961,8 @@ def main() -> None:
         **k1_timed[1024],
         "b128": k1_timed[128],
         "euclidean": {**k1_timed["euclidean"], "launches": other["launches"],
-                      "streamed_launches_per_batch": other["streamed_per_batch"]},
+                      "streamed_launches_per_batch": other["streamed_per_batch"],
+                      "c65536": k1_timed["euclidean_c65536"]},
     }, {
         "name": "subbyte_code_scores",
         "route": "cuda",

@@ -12,22 +12,10 @@
 //   out[q, j] = max over rows j*32 .. j*32+31 of sc[q, row]
 //
 // and, for euclidean (which the Pallas kernel does not compute), the
-// reference's euclidean_u8 (cosdata_tpu/ops/distance.py:74-77) in its own
-// op order, from the code sums s (q_add, v_add: exact integers in f32) and
-// the squared magnitudes (q_inv, v_inv), with consts = (a2, ab, bbd):
-//
-//   code = cc + 128 * (s[q] + s[row]) + Dp * 128 * 128       int32
-//   dot  = (a2 * f32(code) + ab * f32(s[q] + s[row] + 256 * Dp)) + bbd
-//   d2   = (q_inv[q] + v_inv[row]) - 2 * dot
-//   sc   = -sqrt(max(d2, 0)) + v_sink[row]
-//
-// (f32(s[q] + s[row] + 256 * Dp) is the reference's f32 uq + uv, exact
-// while it stays below 2^24.) -sqrt is decreasing, so a bin's maximum is
-// -sqrt of its least d2 over its valid rows: the epilogue keeps that least
-// d2 and takes one correctly rounded square root per bin. A row whose sink
-// is not 0 is invalid (the wrapper writes 0 or kSink); a bin of invalid
-// rows only is kSink, which is what kSink plus -sqrt of any finite d2
-// rounds to.
+// reference's euclidean_u8 (cosdata_tpu/ops/distance.py:60-77) in its own
+// op order: the least d2 of a bin's rows and one square root a bin, from
+// terms in the types that epilogue needs, so that a score costs one int ->
+// float conversion (u8_euclidean.cuh, which states why each is exact).
 //
 // The bins are CONTIGUOUS groups of 32 rows, out is (B, C/32) f32. (The
 // Pallas kernel emits strided row groups, transposed, because Mosaic lowers
@@ -39,30 +27,47 @@
 // by the tensor cores; at B <= 128 (one served request) it is bound by
 // reading the codes once (0.25 ms).
 //
-// The design: the product runs on the int8 tensor cores (wgmma m64n256k32
-// s8.s8.s32 from shared memory). A block owns a tile of 128 queries (the M
-// operand, two consumer warpgroups of 64 rows) by 256 store rows (the N
-// operand); both are K-major, i.e. the (B, Dp) and (C, Dp) row-major codes
-// as they lie. A producer warpgroup keeps a ring of 4 K-slices (128 bytes
-// of Dp for both tiles, 48 KB) in flight with TMA, guarded by full/empty
-// mbarriers, so loads overlap the product; rows past B or C read as zeros.
-// One of its threads issues the copies; the warpgroup hands its registers
-// to the consumers (setmaxnreg), whose accumulators take 128 each.
-// The grid is persistent (one block per SM) and walks the tiles query tile
-// fastest, so the query tiles that share a store tile run back to back on
-// neighbouring SMs and the codes come from device memory about once; the
-// ring runs on across tiles, so the next tile's loads overlap an epilogue.
+// The design: the product runs on the int8 tensor cores (wgmma m64n128k32
+// s8.s8.s32 from shared memory), both operands K-major, i.e. the (B, Dp)
+// and (C, Dp) row-major codes as they lie. A block owns a tile of 128
+// queries (two consumer warpgroups of 64) by 256 store rows and computes
+// it as two halves of 128 rows, each into an accumulator of its own (64
+// registers a thread). A warpgroup issues one half's products, then runs
+// the epilogue of the other accumulator (this tile's other half, or the
+// tile before's) while the ring loads the next half's K-slices, then
+// issues that half's products: the epilogue runs under loads, not under
+// products. Under products it does not pay: the tensor cores keep busy
+// only while both consumer warpgroups issue, and an epilogue sliced
+// between K-slices ran slower than whole (PERF.md, section 6, PR 18). A
+// half needs the query codes again, so they cross L2 once per
+// 128 store rows, not once per 256: the products alone take longer than
+// the one 256-column accumulator's did, and the epilogue hides under that.
+//
+// A producer warpgroup keeps a ring of 6 K-slices (128 bytes of Dp for the
+// 128 queries and a half's 128 rows, 32 KB) in flight with TMA, guarded by
+// full/empty mbarriers; rows past B or C read as zeros. One of its threads
+// issues the copies; the warpgroup hands its registers to the consumers
+// (setmaxnreg). The grid is persistent (one block per SM) and walks the
+// tiles query tile fastest, so the query tiles that share a store tile run
+// back to back on neighbouring SMs and the codes come from device memory
+// about once.
+//
 // The epilogue runs in registers in the Pallas kernel's f32 op order
 // (__fmul_rn/__fadd_rn keep nvcc from contracting it into FMAs): a 32-row
 // bin is 8 accumulator columns of one thread times the 4 lanes of a quad,
-// so its max is a thread-local max and two __shfl_xor_sync steps. The row
-// terms of a tile reach shared memory by bulk copies one tile ahead, so no
-// device-memory latency sits in the epilogue (8 warps per SM cannot hide
-// it); the query terms load under the product. Measured on an NVIDIA H100
-// 80GB HBM3 at 700 W (chip_smoke.py phase 2): 1.45 ms at the shape above
-// back to back, 57% of the bound (1.52 ms as a single call, host time
-// included), and 0.29 ms at B=128 (0.33). About 0.44 ms of it is the f32
-// epilogue, which runs while the tensor cores wait (tools/kernel_variants.py).
+// so its max (or least d2) is a tree over 8 values and two __shfl_xor_sync
+// steps. The row terms of a tile reach shared memory by bulk copies a tile
+// ahead and are read with ld.shared; the query terms load under the
+// products.
+//
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W, back to back at the shape
+// above (tools/kernel_times.py and tools/kernel_variants.py, PR 18; every
+// run in PERF.md): cosine 1.37-1.38 ms, 60% of the bound (the earlier
+// single accumulator: 1.46-1.48), euclidean 1.54 (earlier 2.22-2.27),
+// 0.29 at B=128 (bytes-bound, unchanged). Without its epilogue the kernel
+// takes 1.27-1.35: what holds it there is the query codes read twice a
+// tile, and what remains of the euclidean epilogue (10 instructions a score
+// to cosine's 8) is exposed above it.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -71,35 +76,177 @@
 #include <cstdint>
 
 #include "hopper_mma.cuh"
+#include "u8_euclidean.cuh"
 
 namespace {
 
 constexpr int kGroup = 32;                 // store rows per bin
 constexpr int kBM = 128;                   // queries per tile (two warpgroups of 64)
 constexpr int kBN = 256;                   // store rows per tile
+constexpr int kHalf = kBN / 2;             // store rows per pass (one n128 product)
 constexpr int kBK = 128;                   // code bytes per K-slice (one swizzle row)
-constexpr int kStages = 4;                 // K-slices in flight
+constexpr int kStages = 6;                 // K-slices in flight
 constexpr int kConsumers = 2;              // consumer warpgroups
 constexpr int kThreads = (kConsumers + 1) * 128;  // + the producer warpgroup
 constexpr int kABytes = kBM * kBK;
-constexpr int kBBytes = kBN * kBK;
+constexpr int kBBytes = kHalf * kBK;
 constexpr int kStageBytes = kABytes + kBBytes;
-constexpr int kTermBytes = 3 * kBN * 4;    // a tile's v_add, v_inv, v_sink
-constexpr int kSmemBytes = kStages * kStageBytes + 2 * kTermBytes + 2 * (kStages + 2) * 8 + 1024;
-constexpr int kBinsPerTile = kBN / kGroup;
+constexpr int kTermBytes = 3 * kBN * 4;    // a tile's three 4-byte row terms
+constexpr int kSmemBytes = kStages * kStageBytes + 2 * kTermBytes + (2 * kStages + 4) * 8 + 1024;
+constexpr int kBinsPerHalf = kHalf / kGroup;
 constexpr int kCosine = 0, kDot = 1, kEuclidean = 2;  // the metric codes of the launch
-constexpr float kSink = -3.0e38f;                     // an invalid row's v_sink
 
+// A tile's query terms for the two rows of a thread, and where its output goes.
+struct TileRows {
+  uint32_t t0[2];      // cosine, dot: q_add's bits; euclidean: q_code
+  float t1[2], t2[2];  // cosine, dot: q_inv, unused; euclidean: q_u, q_sq
+  int q_lo;            // the thread's rows are q_lo and q_lo + 8
+  int bin0;            // the tile's first bin
+  int tb;              // the tile's buffer of row terms
+  uint32_t tb_parity;  // the phase of terms_full[tb] that holds them
+};
+
+// What the epilogue reads and writes besides a tile's rows.
+struct Epilogue {
+  uint32_t terms;  // [2][3][kBN] row terms: their shared-memory address
+  float* out;
+  int B, n_bins, quad;
+  float a2, ab, bbd;
+};
+
+// Two 4-byte words of shared memory at address a.
+__device__ __forceinline__ uint2 lds2(uint32_t a) {
+  uint2 v;
+  asm volatile("ld.shared.v2.u32 {%0, %1}, [%2];" : "=r"(v.x), "=r"(v.y) : "r"(a));
+  return v;
+}
+
+// Bin kBin of one half of a tile: this thread's 8 scores of it for each of
+// its two rows, reduced as a tree, then across its quad; lane kBin of the
+// quad keeps the bin (cosine, dot: the maximum; euclidean: the least d2).
+// t0: the shared-memory address of the half's first row term.
+template <int kMetric, int kBin>
+__device__ __forceinline__ void half_bin(const int32_t (&acc)[64], uint32_t t0, const TileRows& r, float a2,
+                                         float ab, float bbd, int quad, float (&keep)[2]) {
+  float sc[2][kGroup / 4];
+#pragma unroll
+  for (int jj = 0; jj < kGroup / 8; ++jj) {
+    const int j = kBin * (kGroup / 8) + jj;  // n8 block of the accumulator
+    const uint32_t col = t0 + 4 * (8 * j + 2 * quad);  // this thread's rows col, col + 1 of the half
+    const uint2 w0 = lds2(col);
+    const uint2 w1 = lds2(col + 4 * kBN);
+    const uint2 w2 = lds2(col + 8 * kBN);
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int32_t cc = acc[4 * j + 2 * h + e];
+        const uint32_t v0 = e ? w0.y : w0.x;
+        const float v1 = __uint_as_float(e ? w1.y : w1.x);
+        const float v2 = __uint_as_float(e ? w2.y : w2.x);
+        if constexpr (kMetric == kEuclidean) {
+          sc[h][2 * jj + e] = u8_euclidean::d2(cc, static_cast<int32_t>(r.t0[h]), r.t1[h], r.t2[h],
+                                               static_cast<int32_t>(v0), v1, v2, a2, ab, bbd);
+        } else {
+          const float dot = __fadd_rn(__fadd_rn(__fmul_rn(a2, __int2float_rn(cc)), __uint_as_float(v0)),
+                                      __uint_as_float(r.t0[h]));
+          float x = __fmul_rn(dot, v1);
+          if (kMetric == kCosine) x = __fmul_rn(x, r.t1[h]);
+          sc[h][2 * jj + e] = __fadd_rn(x, v2);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float m;
+    if constexpr (kMetric == kEuclidean) {
+      m = fminf(fminf(fminf(sc[h][0], sc[h][1]), fminf(sc[h][2], sc[h][3])),
+                fminf(fminf(sc[h][4], sc[h][5]), fminf(sc[h][6], sc[h][7])));
+      m = fminf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+      m = fminf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+    } else {
+      m = fmaxf(fmaxf(fmaxf(sc[h][0], sc[h][1]), fmaxf(sc[h][2], sc[h][3])),
+                fmaxf(fmaxf(sc[h][4], sc[h][5]), fmaxf(sc[h][6], sc[h][7])));
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+    }
+    if (quad == kBin) keep[h] = m;
+  }
+}
+
+// The epilogue of half `half` of tile r, from acc: its 4 bins, then its
+// output, lane quad k of the quad storing bin k of the half for both its
+// rows. A bin lies wholly inside or past C.
+template <int kMetric>
+__device__ __forceinline__ void half_epilogue(const int32_t (&acc)[64], const Epilogue& x, const TileRows& r,
+                                              int half) {
+  const uint32_t t0 = x.terms + 4 * (r.tb * 3 * kBN + half * kHalf);
+  const int bin = r.bin0 + half * kBinsPerHalf;  // the half's first
+  float keep[2] = {0.0f, 0.0f};
+  if (bin < x.n_bins) half_bin<kMetric, 0>(acc, t0, r, x.a2, x.ab, x.bbd, x.quad, keep);
+  if (bin + 1 < x.n_bins) half_bin<kMetric, 1>(acc, t0, r, x.a2, x.ab, x.bbd, x.quad, keep);
+  if (bin + 2 < x.n_bins) half_bin<kMetric, 2>(acc, t0, r, x.a2, x.ab, x.bbd, x.quad, keep);
+  if (bin + 3 < x.n_bins) half_bin<kMetric, 3>(acc, t0, r, x.a2, x.ab, x.bbd, x.quad, keep);
+  if (bin + x.quad >= x.n_bins) return;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int q = r.q_lo + 8 * h;
+    if (q < x.B) {
+      x.out[static_cast<long long>(q) * x.n_bins + bin + x.quad] =
+          kMetric == kEuclidean ? u8_euclidean::bin_value(keep[h]) : keep[h];
+    }
+  }
+}
+
+// The ring of K-slices as a consumer walks it.
+struct Ring {
+  int stage;
+  uint32_t phase;
+  int prev;  // the stage of the last product group issued (-1: none yet)
+};
+
+// One pass of a consumer warpgroup: the products of one half of a tile
+// into acc, K-slice by K-slice through the ring, one group in flight; the
+// pass's last group stays in flight when it returns.
+__device__ __forceinline__ void products(int32_t (&acc)[64], Ring& ring, const uint8_t* smem, uint64_t* full,
+                                         uint64_t* empty, int wg, int tid, int n_ks) {
+  for (int ks = 0; ks < n_ks; ++ks) {
+    hopper::mbar_wait(&full[ring.stage], ring.phase);
+    const uint8_t* a = smem + ring.stage * kStageBytes + wg * 64 * kBK;
+    const uint8_t* b = smem + ring.stage * kStageBytes + kABytes;
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 32; ++kk) {
+      hopper::wgmma_m64n128k32_s8(acc, hopper::sw128_desc(a + kk * 32), hopper::sw128_desc(b + kk * 32),
+                                  (ks | kk) != 0);
+    }
+    hopper::wgmma_commit();
+    // one group stays in flight: the one before is done, release its stage
+    hopper::wgmma_wait<1>();
+    if (ring.prev >= 0 && tid == 0) hopper::mbar_arrive(&empty[ring.prev]);
+    ring.prev = ring.stage;
+    if (++ring.stage == kStages) {
+      ring.stage = 0;
+      ring.phase ^= 1;
+    }
+  }
+}
+
+// q_t*: the three query terms, v_t*: the three row terms (4 bytes each):
+// cosine, dot: q_add, q_inv, unused; v_add, v_inv, v_sink (0 or -3e38).
+// euclidean: q_code, q_u, q_sq; v_code, v_u, v_sq (u8_euclidean.cuh).
 template <int kMetric>
 __global__ void __launch_bounds__(kThreads, 1)
 u8_bin_max_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap c_map,
-                  const float* __restrict__ q_add, const float* __restrict__ q_inv,
-                  const float* __restrict__ v_add, const float* __restrict__ v_inv,
-                  const float* __restrict__ v_sink, const float* __restrict__ consts,
-                  float* __restrict__ out, int B, int C, int n_ks, int n_qtiles, int n_tiles) {
+                  const uint32_t* __restrict__ q_t0, const float* __restrict__ q_t1,
+                  const float* __restrict__ q_t2, const uint32_t* __restrict__ v_t0,
+                  const uint32_t* __restrict__ v_t1, const uint32_t* __restrict__ v_t2,
+                  const float* __restrict__ consts, float* __restrict__ out, int B, int C, int n_ks,
+                  int n_qtiles, int n_tiles) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = hopper::align1024(smem_raw);
-  float* terms = reinterpret_cast<float*>(smem + kStages * kStageBytes);  // [2][3][kBN]
+  uint32_t* terms = reinterpret_cast<uint32_t*>(smem + kStages * kStageBytes);  // [2][3][kBN]
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + kStages * kStageBytes + 2 * kTermBytes);
   uint64_t* empty = full + kStages;
   uint64_t* terms_full = empty + kStages;  // [2]
@@ -132,19 +279,23 @@ u8_bin_max_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_consta
         const uint32_t rows = min(kBN, C - r0);
         hopper::mbar_wait(&terms_empty[tb], ((n >> 1) & 1) ^ 1);
         hopper::mbar_arrive_expect_tx(&terms_full[tb], 3 * rows * 4);
-        float* dst = terms + tb * 3 * kBN;
-        hopper::bulk_load(dst, v_add + r0, rows * 4, &terms_full[tb]);
-        hopper::bulk_load(dst + kBN, v_inv + r0, rows * 4, &terms_full[tb]);
-        hopper::bulk_load(dst + 2 * kBN, v_sink + r0, rows * 4, &terms_full[tb]);
-        for (int ks = 0; ks < n_ks; ++ks) {
-          hopper::mbar_wait(&empty[stage], phase ^ 1);
-          uint8_t* a = smem + stage * kStageBytes;
-          hopper::mbar_arrive_expect_tx(&full[stage], kStageBytes);
-          hopper::tma_load_2d(a, &q_map, &full[stage], ks * kBK, q0);
-          hopper::tma_load_2d(a + kABytes, &c_map, &full[stage], ks * kBK, r0);
-          if (++stage == kStages) {
-            stage = 0;
-            phase ^= 1;
+        uint32_t* dst = terms + tb * 3 * kBN;
+        hopper::bulk_load(dst, v_t0 + r0, rows * 4, &terms_full[tb]);
+        hopper::bulk_load(dst + kBN, v_t1 + r0, rows * 4, &terms_full[tb]);
+        hopper::bulk_load(dst + 2 * kBN, v_t2 + r0, rows * 4, &terms_full[tb]);
+        // the K-slices of the tile's lo half, then those of its hi half: the
+        // query codes come twice, so that each half's products stand alone
+        for (int half = 0; half < 2; ++half) {
+          for (int ks = 0; ks < n_ks; ++ks) {
+            hopper::mbar_wait(&empty[stage], phase ^ 1);
+            uint8_t* a = smem + stage * kStageBytes;
+            hopper::mbar_arrive_expect_tx(&full[stage], kStageBytes);
+            hopper::tma_load_2d(a, &q_map, &full[stage], ks * kBK, q0);
+            hopper::tma_load_2d(a + kABytes, &c_map, &full[stage], ks * kBK, r0 + half * kHalf);
+            if (++stage == kStages) {
+              stage = 0;
+              phase ^= 1;
+            }
           }
         }
       }
@@ -153,147 +304,64 @@ u8_bin_max_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_consta
     hopper::setmaxnreg_inc<232>();
     const int tid = threadIdx.x % 128;
     const int lane = tid % 32;
-    const int quad = lane & 3;
-    const float a2 = consts[0];
-    const float ab = consts[1];   // euclidean only
-    const float bbd = consts[2];  // euclidean only
-    const int code0 = n_ks * kBK * 128 * 128;  // euclidean: Dp * 128^2
-    const int u0 = n_ks * kBK * 256;           // euclidean: 2 * 128 * Dp
-    const float kInf = __int_as_float(0x7f800000);
-    const float kNegInf = -kInf;
-    int stage = 0, prev = 0;
-    uint32_t phase = 0;
-    int32_t acc[128];
-#pragma unroll
-    for (int i = 0; i < 128; ++i) acc[i] = 0;
-
+    const Epilogue x{hopper::smem_u32(terms), out, B, C / kGroup, lane & 3, consts[0], consts[1], consts[2]};
+    Ring ring{0, 0, -1};
+    int32_t acc_lo[64], acc_hi[64];  // the products of a tile's two halves
+    TileRows cur, old;  // this tile's and the one before's
     for (int t = blockIdx.x, n = 0; t < n_tiles; t += gridDim.x, ++n) {
-      const int q0 = t % n_qtiles * kBM;
-      const int r0 = t / n_qtiles * kBN;
-      // this thread's rows are q_lo and q_lo + 8; their terms load under the product
-      const int q_lo = q0 + wg * 64 + (tid / 32) * 16 + lane / 4;
-      float qa[2], qi[2];
+      cur.q_lo = t % n_qtiles * kBM + wg * 64 + (tid / 32) * 16 + lane / 4;
+      cur.bin0 = t / n_qtiles * (kBN / kGroup);
+      cur.tb = n & 1;
+      cur.tb_parity = (n >> 1) & 1;
+      // the query terms load under the lo half's products
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int q = min(q_lo + 8 * h, B - 1);
-        qa[h] = __ldg(q_add + q);
-        qi[h] = __ldg(q_inv + q);
+        const int q = min(cur.q_lo + 8 * h, B - 1);
+        cur.t0[h] = __ldg(q_t0 + q);
+        cur.t1[h] = __ldg(q_t1 + q);
+        cur.t2[h] = kMetric == kEuclidean ? __ldg(q_t2 + q) : 0.0f;
       }
-
-      for (int ks = 0; ks < n_ks; ++ks) {
-        hopper::mbar_wait(&full[stage], phase);
-        const uint8_t* a = smem + stage * kStageBytes + wg * 64 * kBK;
-        const uint8_t* b = smem + stage * kStageBytes + kABytes;
-        hopper::wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < kBK / 32; ++kk) {
-          hopper::wgmma_m64n256k32_s8(acc, hopper::sw128_desc(a + kk * 32), hopper::sw128_desc(b + kk * 32),
-                                      (ks | kk) != 0);
-        }
-        hopper::wgmma_commit();
-        // one group stays in flight: the previous slice's is done, release its stage
-        hopper::wgmma_wait<1>();
-        if (ks > 0 && tid == 0) hopper::mbar_arrive(&empty[prev]);
-        prev = stage;
-        if (++stage == kStages) {
-          stage = 0;
-          phase ^= 1;
-        }
+      // the lo half's products; then, with their last group in flight and
+      // the next slices loading, the epilogue of the tile before's hi half,
+      // which frees that tile's row terms
+      products(acc_lo, ring, smem, full, empty, wg, tid, n_ks);
+      if (n > 0) {
+        hopper::fence_regs(acc_hi);
+        half_epilogue<kMetric>(acc_hi, x, old, 1);
+        __syncwarp();
+        if (lane == 0) hopper::mbar_arrive(&terms_empty[old.tb]);
       }
-      hopper::wgmma_wait<0>();
-      hopper::fence_regs(acc);
-      if (tid == 0) hopper::mbar_arrive(&empty[prev]);
-
-      // epilogue, from the row terms in shared memory
-      const int tb = n & 1;
-      hopper::mbar_wait(&terms_full[tb], (n >> 1) & 1);
-      const float* t_add = terms + tb * 3 * kBN;
-      const float* t_inv = t_add + kBN;
-      const float* t_sink = t_add + 2 * kBN;
-      const int bin0 = r0 / kGroup;
-      const int n_bins = C / kGroup;
-      float keep[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
-#pragma unroll
-      for (int bn = 0; bn < kBinsPerTile; ++bn) {
-        if (bin0 + bn >= n_bins) continue;  // uniform: a bin lies wholly inside or past C
-        // cosine, dot: the running max of sc; euclidean: the least d2 of valid rows
-        float m[2] = {kMetric == kEuclidean ? kInf : kNegInf, kMetric == kEuclidean ? kInf : kNegInf};
-#pragma unroll
-        for (int jj = 0; jj < kGroup / 8; ++jj) {
-          const int j = bn * (kGroup / 8) + jj;  // n8 block of the accumulator
-          const int col = 8 * j + 2 * quad;      // this thread's rows col, col + 1 of the tile
-          const float2 va = *reinterpret_cast<const float2*>(t_add + col);
-          const float2 vi = *reinterpret_cast<const float2*>(t_inv + col);
-          const float2 vs = *reinterpret_cast<const float2*>(t_sink + col);
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              const int32_t cc = acc[4 * j + 2 * h + e];
-              if constexpr (kMetric == kEuclidean) {
-                const int s = __float2int_rn(qa[h]) + __float2int_rn(e ? va.y : va.x);
-                const float cd = __int2float_rn(cc + 128 * s + code0);
-                const float u = __int2float_rn(s + u0);
-                const float dot = __fadd_rn(__fadd_rn(__fmul_rn(a2, cd), __fmul_rn(ab, u)), bbd);
-                const float d2 = __fsub_rn(__fadd_rn(qi[h], e ? vi.y : vi.x), __fadd_rn(dot, dot));
-                if ((e ? vs.y : vs.x) == 0.0f) m[h] = fminf(m[h], d2);
-              } else {
-                const float dot =
-                    __fadd_rn(__fadd_rn(__fmul_rn(a2, __int2float_rn(cc)), e ? va.y : va.x), qa[h]);
-                float sc = __fmul_rn(dot, e ? vi.y : vi.x);
-                if (kMetric == kCosine) sc = __fmul_rn(sc, qi[h]);
-                sc = __fadd_rn(sc, e ? vs.y : vs.x);
-                m[h] = fmaxf(m[h], sc);
-              }
-            }
-          }
-        }
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          if constexpr (kMetric == kEuclidean) {
-            m[h] = fminf(m[h], __shfl_xor_sync(0xffffffffu, m[h], 1));
-            m[h] = fminf(m[h], __shfl_xor_sync(0xffffffffu, m[h], 2));
-            m[h] = m[h] == kInf ? kSink : __fadd_rn(-__fsqrt_rn(fmaxf(m[h], 0.0f)), 0.0f);
-          } else {
-            m[h] = fmaxf(m[h], __shfl_xor_sync(0xffffffffu, m[h], 1));
-            m[h] = fmaxf(m[h], __shfl_xor_sync(0xffffffffu, m[h], 2));
-          }
-          if ((bn >> 1) == quad) keep[h][bn & 1] = m[h];
-        }
-      }
-      __syncwarp();
-      if (lane == 0) hopper::mbar_arrive(&terms_empty[tb]);
-      // lane quad k of the quad stores bins 2k and 2k + 1 of both its rows
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int q = q_lo + 8 * h;
-        if (q >= B) continue;
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int bin = bin0 + 2 * quad + e;
-          if (bin < n_bins) out[static_cast<long long>(q) * n_bins + bin] = keep[h][e];
-        }
-      }
+      // the hi half's products; then the epilogue of this tile's lo half
+      products(acc_hi, ring, smem, full, empty, wg, tid, n_ks);
+      hopper::fence_regs(acc_lo);
+      hopper::mbar_wait(&terms_full[cur.tb], cur.tb_parity);
+      half_epilogue<kMetric>(acc_lo, x, cur, 0);
+      old = cur;
     }
+    // the last tile's hi half
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc_hi);
+    half_epilogue<kMetric>(acc_hi, x, old, 1);
   }
 }
 
 }  // namespace
 
 // metric: 0 = cosine, 1 = dot, 2 = euclidean. Pointers are device
-// pointers; consts points at three floats on the device (a2, ab, bbd).
-// Returns the cudaError_t of the launch.
-extern "C" int u8_bin_max_launch(int metric, const void* q_codes, const void* q_add,
-                                 const void* q_inv, const void* codes, const void* v_add,
-                                 const void* v_inv, const void* v_sink, const void* consts,
-                                 void* out, int B, long long C, int Dp, void* stream) {
+// pointers: the codes, three query terms and three row terms of 4 bytes
+// each (the kernel's order; q_t2 unused by cosine and dot), and consts,
+// three floats (a2, ab, bbd). Returns the cudaError_t of the launch.
+extern "C" int u8_bin_max_launch(int metric, const void* q_codes, const void* q_t0, const void* q_t1,
+                                 const void* q_t2, const void* codes, const void* v_t0, const void* v_t1,
+                                 const void* v_t2, const void* consts, void* out, int B, long long C, int Dp,
+                                 void* stream) {
   if (B <= 0 || C <= 0 || C % kGroup != 0 || C > INT_MAX - kBN || Dp <= 0 || Dp % kBK != 0 ||
       metric < kCosine || metric > kEuclidean || (metric == kEuclidean && Dp > 16384)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   CUtensorMap q_map, c_map;
   int err = hopper::encode_tma_2d_u8(&q_map, q_codes, Dp, B, Dp, kBK, kBM);
-  if (err == 0) err = hopper::encode_tma_2d_u8(&c_map, codes, Dp, C, Dp, kBK, kBN);
+  if (err == 0) err = hopper::encode_tma_2d_u8(&c_map, codes, Dp, C, Dp, kBK, kHalf);
   if (err != 0) return err;
   const int n_qtiles = (B + kBM - 1) / kBM;
   const long long n_tiles = (C + kBN - 1) / kBN * n_qtiles;
@@ -307,9 +375,10 @@ extern "C" int u8_bin_max_launch(int metric, const void* q_codes, const void* q_
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (e != cudaSuccess) return static_cast<int>(e);
   kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
-      q_map, c_map, static_cast<const float*>(q_add), static_cast<const float*>(q_inv),
-      static_cast<const float*>(v_add), static_cast<const float*>(v_inv), static_cast<const float*>(v_sink),
-      static_cast<const float*>(consts), static_cast<float*>(out), B, static_cast<int>(C), Dp / kBK, n_qtiles, static_cast<int>(n_tiles));
+      q_map, c_map, static_cast<const uint32_t*>(q_t0), static_cast<const float*>(q_t1),
+      static_cast<const float*>(q_t2), static_cast<const uint32_t*>(v_t0), static_cast<const uint32_t*>(v_t1),
+      static_cast<const uint32_t*>(v_t2), static_cast<const float*>(consts), static_cast<float*>(out), B,
+      static_cast<int>(C), Dp / kBK, n_qtiles, static_cast<int>(n_tiles));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -12,8 +12,9 @@ against their plain versions and times each wrapper call two ways:
   host time between calls is hidden.
 
 ``torch._int_mm`` on the same int8 codes (the product only) is timed both
-ways beside K1 and K2. Shapes: K1 at B=1024 and 128, C=1,048,576, Dp=768,
-cosine; K2 at res=2, B=1024, C=65,536, Dp=768; group_topk at B=1024,
+ways beside K1 and K2. Shapes: K1 at Dp=768 by cosine at B=1024 and 128,
+C=1,048,576, by euclidean at B=1024, C=1,048,576, and by both at B=1024,
+C=65,536, the last 1,000 rows invalid; K2 at res=2, B=1024, C=65,536, Dp=768; group_topk at B=1024,
 C=65,536, k=200 on every merge of a quaternary cosine scan of 1,000,000
 clustered rows (``measure.quaternary_scan_merges``: the main path's
 running tops, from empty to late; back to back each, and single on the
@@ -32,6 +33,11 @@ import sys
 from pathlib import Path
 
 KERNELS = ("k1", "k2", "group_topk")
+#: K1's cases: key, metric, B, C (a resident 1M scan; a 65,536-row chunk
+#: of the streamed and approx scans)
+K1_CASES = (("k1_b1024", "cosine", 1024, 1_048_576), ("k1_b128", "cosine", 128, 1_048_576),
+            ("k1_euclidean_b1024", "euclidean", 1024, 1_048_576),
+            ("k1_c65536_b1024", "cosine", 1024, 65_536), ("k1_euclidean_c65536_b1024", "euclidean", 1024, 65_536))
 
 
 def main() -> None:
@@ -67,15 +73,15 @@ def main() -> None:
         store = quantize_u8(x, -0.6, 0.7, 768)
         planes = quantize_subbyte(x[:65_536], 2, 768).planes
         del x
-        valid = torch.ones(store.data.shape[0], dtype=torch.bool, device=dev)
-        valid[-1000:] = False
     if "k1" in kernels:
-        for b in (1024, 128):
+        for key, metric, b, c in K1_CASES:
             q = quantize_u8(torch.rand((b, 768), generator=gen, device=dev) * 2 - 1, -0.6, 0.7, 768)
-            t = u8_scan.bin_max_terms("cosine", q, store, valid, 768)
-            out[f"k1_b{b}"] = timed(lambda: u8_scan.u8_bin_max("cosine", 32, t),
-                                    lambda: u8_scan.u8_bin_max_plain("cosine", 32, t),
-                                    lambda: torch._int_mm(t.q_codes, t.codes.t()))
+            rows = store._replace(data=store.data[:c], sums=store.sums[:c], mags=store.mags[:c])
+            valid = torch.arange(c, device=dev) < c - 1000  # the last 1,000 rows invalid
+            t = u8_scan.bin_max_terms(metric, q, rows, valid, 768)
+            out[key] = timed(lambda: u8_scan.u8_bin_max(metric, 32, t),
+                             lambda: u8_scan.u8_bin_max_plain(metric, 32, t),
+                             lambda: torch._int_mm(t.q_codes, t.codes.t()))
     if "k2" in kernels:
         qp = quantize_subbyte(torch.rand((1024, 768), generator=gen, device=dev) * 2 - 1, 2, 768).planes
         qc, vc = (subbyte_values(p, 768).to(torch.int8).contiguous() for p in (qp, planes))

@@ -6,20 +6,25 @@ is built by the package's ``CudaLibrary`` (in parallel) beside its copy in
 a scratch directory, swapped into the wrapper in place of the package's library,
 checked against the plain version (a timing-only variant is not exact and
 says so) and timed at the main path's shapes: K1 at B=1024 and 128, C =
-1,048,576, Dp=768, cosine; K2 at res=2, B=1024 and 128, C=65,536, Dp=768,
+1,048,576, Dp=768, by cosine, dot and euclidean, its bins held bit for
+bit; K2 at res=2, B=1024 and 128, C=65,536, Dp=768,
 its raw int32 entry and its fused entry by dot and by cosine (a mask of
 every row; the fused scores held bit for bit); group_topk at B=1024,
 C=65,536, k=200 on the first and the last merge of a quaternary cosine
 scan of 1,000,000 clustered rows (``measure.quaternary_scan_merges``),
 its sorted values held bit for bit against its plain version. Needs one
-CUDA card and nvcc; run from the repository root:
+CUDA card and nvcc; each variant's SASS is counted by opcode where
+cuobjdump is found. Run from the repository root:
 
     python3 -m cosdata_tpu_torch.tools.kernel_variants [variant ...]   # default: all
 
 Variants:
   k1, k2          the package's kernels as they are
   k1_no_epilogue  K1 without the epilogue's arithmetic (timing only)
-  k1_bitcast_i2f  K1 with the int -> float conversion a bit cast (timing only)
+  k1_bitcast_i2f  K1 with cosine's and dot's int -> float conversion a bit
+                  cast (timing only)
+  k1_e_fsub       euclidean's d2 as the reference writes it, a doubling
+                  and a subtraction, not one fused multiply-add
   k2_fdiv         K2's fused cosine dividing by __fdiv_rn (exact, with its
                   slow-path call) in place of the branch-free div_rn
   gt              group_topk as it is
@@ -34,9 +39,12 @@ Variants:
 
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import ctypes
+import re
 import shutil
+import subprocess
 import sys
 import tempfile
 from pathlib import Path
@@ -53,8 +61,11 @@ MODULES = {K1: u8_scan, K2: subbyte_scan, GT: group_topk}
 VARIANTS = {
     "k1": (K1, []),
     "k2": (K2, []),
-    "k1_no_epilogue": (K1, [("if (bin0 + bn >= n_bins) continue;", "if (B > 0) continue;")]),
+    "k1_no_epilogue": (K1, [("  const uint32_t t0 = x.terms + 4 * (r.tb * 3 * kBN + half * kHalf);",
+                             "  if (x.B > 0) return;\n  const uint32_t t0 = x.terms + 4 * (r.tb * 3 * kBN + half * kHalf);")]),
     "k1_bitcast_i2f": (K1, [("__fmul_rn(a2, __int2float_rn(cc))", "__fmul_rn(a2, __int_as_float(cc))")]),
+    "k1_e_fsub": (K1, [("u8_euclidean.cuh", "__fmaf_rn(-2.0f, dot, __fadd_rn(q_sq, v_sq))",
+                        "__fsub_rn(__fadd_rn(q_sq, v_sq), __fadd_rn(dot, dot))")]),
     "k2_fdiv": (K2, [("div_rn(dot, den) : 0.f", "__fdiv_rn(dot, den) : 0.f")]),
     "gt": (GT, []),
     "gt_slack256": (GT, [("constexpr int kSlack = 512;", "constexpr int kSlack = 256;")]),
@@ -89,17 +100,41 @@ def build(name: str, root: Path) -> tuple[str, nvcc.CudaLibrary, str]:
     src = root / name
     shutil.copytree(CSRC, src)
     cu = src / f"{kernel}.cu"
-    text = cu.read_text()
-    for old, new in edits:
+    for edit in edits:  # (old, new) edits the kernel's source, (file, old, new) a header beside it
+        path, old, new = (cu, *edit) if len(edit) == 2 else (src / edit[0], *edit[1:])
+        text = path.read_text()
         if old not in text:
-            raise SystemExit(f"FAIL: variant {name}: {old!r} is not in {cu.name}")
-        text = text.replace(old, new)
-    cu.write_text(text)
+            raise SystemExit(f"FAIL: variant {name}: {old!r} is not in {path.name}")
+        path.write_text(text.replace(old, new))
     entries = MODULES[kernel].LIBRARY.entries
     if name == "gt_trace":
         entries = {"launch": [*entries["launch"], ctypes.c_void_p]}
     lib = nvcc.CudaLibrary(kernel, entries, source=cu, library=src / f"lib{kernel}.so")
     return name, lib, lib.build()
+
+
+#: the opcodes sass_lines counts (the rest go into the total): I2FP is the
+#: int -> float conversion on the f32 pipe, I2F the one on the slow pipe,
+#: LD a generic load, IGMMA the int8 warpgroup product
+SASS_OPS = ("I2FP", "I2F", "IADD3", "FADD", "FMUL", "FFMA", "FMNMX", "MUFU", "LDS", "LD", "SHFL", "BRA", "CALL",
+            "IGMMA", "SYNCS")
+
+
+def sass_lines(lib: nvcc.CudaLibrary) -> list[str]:
+    """Each kernel's instruction count in the built library, whole and by
+    SASS_OPS (cuobjdump -sass; none where cuobjdump is missing)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return []
+    sass = subprocess.run([tool, "-sass", str(lib.library)], capture_output=True, text=True, check=True).stdout
+    lines = []
+    for part in sass.split("Function : ")[1:]:
+        name = part.split("\n", 1)[0].strip()
+        ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", part)
+        count = collections.Counter(ops)
+        lines.append(f"  sass {name[-60:]}: {len(ops)} instructions; " +
+                     ", ".join(f"{op} {count[op]}" for op in SASS_OPS if count[op]))
+    return lines
 
 
 def trace_line(lib: nvcc.CudaLibrary, scores, gmax, top_s, top_i, start: int) -> str:
@@ -122,7 +157,7 @@ def trace_line(lib: nvcc.CudaLibrary, scores, gmax, top_s, top_i, start: int) ->
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("FAIL: the variants run on a CUDA card")
-    names = sys.argv[1:] or list(VARIANTS)
+    names = list(dict.fromkeys(sys.argv[1:])) or list(VARIANTS)  # each variant once
     dev = torch.device("cuda")
     card = card_line()
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -148,6 +183,7 @@ def main() -> None:
             try:
                 regs = [line.strip() for line in log.splitlines() if "registers" in line or "spill" in line]
                 print(f"== {name} [{card}]: " + "; ".join(regs[:2]), flush=True)
+                print("\n".join(sass_lines(lib)), flush=True)
                 if kernel == GT:
                     for (scores, gmax, top_s, top_i, start), where in zip(merges.values(), ("first", "last")):
                         if name == "gt_trace":
@@ -164,9 +200,13 @@ def main() -> None:
                 for b in (1024, 128):
                     if kernel == K1:
                         q = quantize_u8(torch.rand((b, 768), generator=gen, device=dev) * 2 - 1, -0.6, 0.7, 768)
-                        t = u8_scan.bin_max_terms("cosine", q, store, valid, 768)
-                        run = lambda: u8_scan.u8_bin_max("cosine", 32, t)  # noqa: E731
-                        err = float((run() - u8_scan.u8_bin_max_plain("cosine", 32, t)).abs().max())
+                        for metric in ("cosine", "dot", "euclidean"):
+                            t = u8_scan.bin_max_terms(metric, q, store, valid, 768)
+                            run = lambda: u8_scan.u8_bin_max(metric, 32, t)  # noqa: E731
+                            same = torch.equal(run(), u8_scan.u8_bin_max_plain(metric, 32, t))
+                            ms = [device_ms(run, 10) for _ in range(2)]
+                            print(f"  B={b} {metric}: bins bit for bit {same}, {ms[0]:.4f}/{ms[1]:.4f} ms", flush=True)
+                        continue
                     else:
                         qs = quantize_subbyte(torch.rand((b, 768), generator=gen, device=dev) * 2 - 1, 2, 768)
                         qp = qs.planes

@@ -577,10 +577,12 @@ def test_kernel_variants_edit_the_source(name):
     current source: every text it replaces is there (the tool refuses a
     variant whose text is missing, but only on the card)."""
     kernel, edits = kernel_variants.VARIANTS[name]
-    text = (kernel_variants.CSRC / f"{kernel}.cu").read_text()
-    for old, new in edits:
+    texts = {}
+    for edit in edits:
+        path, old, new = (f"{kernel}.cu", *edit) if len(edit) == 2 else edit
+        text = texts.get(path) or (kernel_variants.CSRC / path).read_text()
         assert text.count(old) == 1, old
-        text = text.replace(old, new)
+        texts[path] = text.replace(old, new)
 
 
 EMULATION = Path(__file__).parent / "cuda_emulation"

@@ -9,17 +9,24 @@ Run from the repository root on a machine with one CUDA card:
     python3 chip_smoke.py
 
 Phases: 0 environment; 1 build the kernels (u8_bin_max, K1;
-subbyte_code_scores, K2; group_topk, the sub-byte scan's per-chunk top-k)
-from the checkout's sources, in parallel; 2 K1
+subbyte_code_scores, K2; group_topk, the sub-byte scan's per-chunk top-k;
+u8_block_dot, the u8 scan's stage 4) from the checkout's sources, in
+parallel; 2 K1
 against its plain PyTorch version at the u8 path's shapes and the tiles'
 edges and at Dp=4,096, by cosine, dot and euclidean, bins bit for bit,
 timed beside its bound and torch._int_mm (cosine at B=1024 and 128,
-euclidean at B=1024 at C=1,048,576 and 65,536); 3 the u8
+euclidean at B=1024 at C=1,048,576 and 65,536); 2b u8_block_dot against
+its plain version, int32 dots bit for bit, at a resident scan's shape (B
+1,024, 64 blocks of 32 rows, Dp 768), at Dp 1,024, at a streamed chunk's
+(50 blocks) and with blocks of one row, timed beside its bound and the
+plain version (the gathered copy, its f32 cast and the batched product),
+then at small ragged shapes; expand_bins over a whole batch equal to its
+slices; 3 the u8
 path at 1M x 768: a DenseIndexHandle filled as the reference's bench fills
 it (983,616 rows in one call: the graph's bulk build), one search, then 16
 insertion waves of 1,024 rows, searched through DenseIndexHandle.search
-and FlatIndex.search, recall@10 against an exact f32 oracle and K1's launch
-count, then one batch of 12,288 queries, whose bin table passes the
+and FlatIndex.search, recall@10 against an exact f32 oracle and K1's and
+u8_block_dot's launch counts, then one batch of 12,288 queries, whose bin table passes the
 limit, through the approx select mode (K1 per 65,536-row chunk), against
 the oracle and the bins mode on its thirds; 4 u8 search semantics, and the graph routes with the serving limits
 below the rows (unfiltered and 50% filter by the graph, 5% filter by the
@@ -155,15 +162,15 @@ try:
     from cosdata_tpu_torch.indexes.inverted import InvertedIndex
     from cosdata_tpu_torch.indexes.tf_idf import TFIDFIndex
     from cosdata_tpu_torch.ops import flat_scan, sparse_kernels
-    from cosdata_tpu_torch.ops.kernels import group_topk, subbyte_scan, u8_scan
+    from cosdata_tpu_torch.ops.kernels import group_topk, subbyte_scan, u8_block_dot, u8_scan
     from cosdata_tpu_torch.ops.quantize import quantize_subbyte, quantize_u8
     from cosdata_tpu_torch.ops.topk import NEG_INF
     from cosdata_tpu_torch.parallel.sharded import ShardedFlatIndex, make_mesh
     from cosdata_tpu_torch.text import native as text_native
     from cosdata_tpu_torch.text import processing as text_processing
     from cosdata_tpu_torch.text.processing import process_text_query
-    from cosdata_tpu_torch.tools.measure import (bound, card_line, clustered, cuda_ms, device_ms, group_topk_bytes,
-                                                 quaternary_scan_merges)
+    from cosdata_tpu_torch.tools.measure import (block_dot_bytes, bound, card_line, clustered, cuda_ms, device_ms,
+                                                 group_topk_bytes, quaternary_scan_merges)
     from cosdata_tpu_torch.tools.profile_dense import device_us
     from cosdata_tpu_torch.tools.text_check import UNICODE_CORPUS, differences, pipeline
     from cosdata_tpu_torch.tools.text_check import bm25_corpus as text_corpus
@@ -242,15 +249,16 @@ K1_CHECKED = [(c, dp) for c in (4_128, 65_536, 1_048_576) for dp in (128, 768)] 
 
 
 def kernel_timing(what: str, kernel, plain, library, plain_reps: int, ops: float, nbytes: float,
-                  card: str, f32_ops: float = 0.0) -> dict:
+                  card: str, f32_ops: float = 0.0, dp4a_ops: float = 0.0) -> dict:
     """Plain, kernel, kernel, plain in turns, each the median of single
     calls timed alone (``cuda_ms``: 5 calls, ``plain_reps`` for the plain
     version), then one library call on the same inputs (``torch._int_mm``:
     the product only; None where there is none) timed the same way. Then
     the kernel and the library call back to back (``device_ms``, 20 calls
     behind a spin kernel: no host time between calls), under their own
-    keys. And the bound for ``ops`` int8 operations (and ``f32_ops`` float32
-    ones) moving ``nbytes``."""
+    keys. And the bound for ``ops`` int8 tensor-core operations (and
+    ``f32_ops`` float32 and ``dp4a_ops`` int8 ``__dp4a`` ones) moving
+    ``nbytes``."""
     p1 = cuda_ms(plain, plain_reps)
     k1 = cuda_ms(kernel, 5)
     k2 = cuda_ms(kernel, 5)
@@ -258,7 +266,7 @@ def kernel_timing(what: str, kernel, plain, library, plain_reps: int, ops: float
     lib = cuda_ms(library, 5) if library else None
     b2b = device_ms(kernel, 20)
     lib_b2b = device_ms(library, 20) if library else None
-    bound_ms, bound_by = bound(ops, nbytes, f32_ops)
+    bound_ms, bound_by = bound(ops, nbytes, f32_ops, dp4a_ops)
     lib_text = f"torch._int_mm (product only) {lib:.4f} ms, back to back {lib_b2b:.4f}; " if library else ""
     print(f"  time at {what}: kernel {k1:.4f}/{k2:.4f} ms, back to back {b2b:.4f}; plain {p1:.3f}/{p2:.3f} ms; "
           f"{lib_text}bound {bound_ms:.4f} ms ({bound_by}) [{card}]", flush=True)
@@ -327,6 +335,113 @@ def kernel_check(gen, dev, card: str) -> tuple[float, dict]:
     return max_err, timed
 
 
+#: stage 4's checked shapes: (what, B, table rows, blocks a query, rows a
+#: block, Dp). Timed: a resident scan's (k_bins_for(50) = 64 bins of 32), the
+#: same at the L2 cell's Dp 1,024, a streamed 65,536-row chunk's (50 bins)
+#: and group 1 (rows by id, as a graph wave would pass them); then ragged
+#: tiles and widths at small sizes
+BLOCK_DOT_TIMED = [("resident", 1024, 1_048_576, 64, 32, 768), ("resident Dp 1024", 1024, 1_048_576, 64, 32, 1024),
+                   ("streamed chunk", 1024, 65_536, 50, 32, 768), ("group 1", 1024, 1_048_576, 256, 1, 768)]
+BLOCK_DOT_CHECKED = [("B=1", 1, 4_128, 7, 32, 768), ("ragged", 100, 4_128, 7, 32, 128),
+                     ("wide", 100, 4_128, 7, 32, 4_096), ("group 1 ragged", 100, 4_128, 33, 1, 768)]
+#: queries a slice of the expansion took before the kernel at the resident
+#: shape: 2^30 bytes of f32 blocks over 64 x 32 rows of 768 codes
+PARENT_SLICE = (1 << 30) // (64 * 32 * 768 * 4)
+
+
+def block_dot_inputs(gen, dev, b: int, rows: int, k: int, group: int, dp: int):
+    """A quantized store of ``rows`` random rows (codes saturate at both
+    ends of the int8 range, so many tie), b quantized queries and (B, k)
+    block ids: distinct random blocks a query where the (B, blocks) draw is
+    small, random ones otherwise; query 0's codes set to -128 and the last
+    block to -128 (the largest sum), every query's last id the last block."""
+    d_true = dp - 28
+    store = quantize_u8(torch.rand((rows, dp), generator=gen, device=dev) * 2 - 1, -0.6, 0.7, d_true)
+    q = quantize_u8(torch.rand((b, dp), generator=gen, device=dev) * 2 - 1, -0.6, 0.7, d_true)
+    n_blocks = rows // group
+    store.data[-group:] = -128
+    q.data[0] = -128
+    if b * n_blocks <= 1 << 28:
+        ids = torch.topk(torch.rand((b, n_blocks), generator=gen, device=dev), k, dim=1).indices
+    else:
+        ids = torch.randint(0, n_blocks, (b, k), generator=gen, device=dev)
+    ids[:, -1] = n_blocks - 1
+    return q, store, ids.contiguous()
+
+
+def block_dot_against_plain(q, store, ids, group: int, where: str) -> float:
+    """u8_block_dot against its plain version: int32 dots bit for bit.
+    Returns the max abs error (0); fails otherwise."""
+    got = u8_block_dot.u8_block_dot(q.data, store.data, ids, group)
+    want = u8_block_dot.u8_block_dot_plain(q.data, store.data, ids, group)
+    torch.cuda.synchronize()
+    if got.shape != want.shape or got.dtype != torch.int32:
+        fail(f"u8_block_dot gave {got.dtype} {tuple(got.shape)}, want int32 {tuple(want.shape)} at {where}")
+    e = float((got.to(torch.int64) - want.to(torch.int64)).abs().max()) if got.numel() else 0.0
+    if not torch.equal(got, want):
+        fail(f"u8_block_dot differs from its plain version at {where}: max abs {e}")
+    if q.data[0].shape[0] * 128 * 128 not in want[0].tolist():
+        fail(f"the largest sum was not reached at {where}")
+    return e
+
+
+def expansion_unsliced(q, store, ids, gen, card: str) -> None:
+    """flat_scan.expand_bins over the whole batch (one u8_block_dot launch,
+    the epilogue and top-k over all B rows) against the same function run
+    on slices of PARENT_SLICE queries, as the expansion ran before the
+    kernel: vals and ids equal, by cosine, dot and euclidean, with sunk
+    bins and tied codes."""
+    b, k = ids.shape
+    dp = q.data.shape[1]
+    bin_s = torch.sort(torch.rand((b, k), generator=gen, device=ids.device), dim=1, descending=True).values
+    bin_s[::7, -5:] = NEG_INF  # sunk bins
+    valid = torch.ones(store.data.shape[0], dtype=torch.bool, device=ids.device)
+    valid[::97] = False
+    for metric in ("cosine", "dot", "euclidean"):
+        whole = flat_scan.expand_bins(metric, dp, 32, 50, q, store, valid, bin_s, ids)
+        parts = [flat_scan.expand_bins(metric, dp, 32, 50, q._replace(data=q.data[s : s + PARENT_SLICE],
+                                                                        sums=q.sums[s : s + PARENT_SLICE],
+                                                                        mags=q.mags[s : s + PARENT_SLICE]),
+                                       store, valid, bin_s[s : s + PARENT_SLICE], ids[s : s + PARENT_SLICE])
+                 for s in range(0, b, PARENT_SLICE)]
+        same = [torch.equal(whole[i], torch.cat([p[i] for p in parts])) for i in (0, 1)]
+        print(f"  expand_bins {metric} B={b}: one launch vs {len(parts)} slices of {PARENT_SLICE} queries: vals "
+              f"equal {same[0]}, ids equal {same[1]} [{card}]", flush=True)
+        if not all(same):
+            fail(f"expand_bins over the whole batch differs from its slices ({metric})")
+
+
+def block_dot_check(gen, dev, card: str) -> tuple[float, dict]:
+    """Phase 2b: u8_block_dot against its plain version, bit for bit, at
+    BLOCK_DOT_TIMED (timed beside the bound, the plain version being the
+    gathered copy, its f32 cast and the batched product) and
+    BLOCK_DOT_CHECKED; expand_bins whole against its slices. Returns
+    (max_abs_err, timings by case)."""
+    max_err, timed = 0.0, {}
+    for what, b, rows, k, group, dp in BLOCK_DOT_TIMED + BLOCK_DOT_CHECKED:
+        q, store, ids = block_dot_inputs(gen, dev, b, rows, k, group, dp)
+        where = f"{what}: B={b} rows={rows} K={k} G={group} Dp={dp}"
+        e = block_dot_against_plain(q, store, ids, group, where)
+        max_err = max(max_err, e)
+        print(f"  {where} (bit for bit) max_abs_err {e:.3g}", flush=True)
+        if what == "resident":
+            expansion_unsliced(q, store, ids, gen, card)
+        if (what, b, rows, k, group, dp) in BLOCK_DOT_TIMED:
+            nbytes, per_query = block_dot_bytes(ids, group, dp)
+            dp4a_ops = 2.0 * b * k * group * dp
+            t = kernel_timing(where, lambda: u8_block_dot.u8_block_dot(q.data, store.data, ids, group),
+                              lambda: u8_block_dot.u8_block_dot_plain(q.data, store.data, ids, group), None, 3,
+                              0.0, nbytes, card, dp4a_ops=dp4a_ops)
+            t["bound_per_query_ms"] = bound(0.0, per_query, dp4a_ops=dp4a_ops)[0]
+            print(f"    bytes: distinct blocks {nbytes}, each query its own {per_query} (bound "
+                  f"{t['bound_per_query_ms']:.4f} ms); {dp4a_ops:.3g} int8 operations "
+                  f"({bound(0.0, 0.0, dp4a_ops=dp4a_ops)[0]:.4f} ms at the __dp4a rate) [{card}]", flush=True)
+            timed[what] = t
+        del q, store, ids
+        torch.cuda.empty_cache()
+    return max_err, timed
+
+
 def check_results(name: str, ids, truth: torch.Tensor, t: float, card: str, gate: bool) -> None:
     b = truth.shape[0]
     if ids.shape != (b, 10) or (ids < 0).any():
@@ -346,9 +461,20 @@ def sync_all(devices) -> None:
 
 def reset_counts() -> None:
     u8_scan.u8_bin_max.launches = 0
+    u8_block_dot.u8_block_dot.launches = 0
     subbyte_scan.subbyte_code_scores.launches = 0
     subbyte_scan.unpack_query_codes.launches = 0
     group_topk.merge_group_topk.launches = 0
+
+
+def k1_launches() -> int:
+    """K1's launches since the counts were reset. Every scan that launches
+    K1 rescores its winning bins by one launch of u8_block_dot (stage 4), so
+    the two counts must agree; fails where they do not."""
+    k1, stage4 = u8_scan.u8_bin_max.launches, u8_block_dot.u8_block_dot.launches
+    if k1 != stage4:
+        fail(f"u8_bin_max launched {k1} times but u8_block_dot {stage4}: a scan skipped its kernel")
+    return k1
 
 
 def graph_ingest(handle: DenseIndexHandle, x, q, card: str, name: str) -> None:
@@ -389,11 +515,11 @@ def approx_check(name: str, search, q_big, truth_big: torch.Tensor, capacity: in
     Returns K1's launches over the check."""
     reset_counts()
     search(q_big)
-    per_batch = u8_scan.u8_bin_max.launches
+    per_batch = k1_launches()
     t, (ids, _) = timed_search(lambda: search(q_big), reps=1)
     third = NQ_APPROX // 3
     parts = [search(q_big[s : s + third]) for s in range(0, NQ_APPROX, third)]
-    launches = u8_scan.u8_bin_max.launches
+    launches = k1_launches()
     b_ids, b_sc = (np.concatenate([p[i] for p in parts]) for i in (0, 1))
     check_results(f"{name} b{NQ_APPROX} (approx select)", ids, truth_big, t, card, True)
     same, share = untied_equal(ids, b_ids, b_sc)
@@ -425,7 +551,7 @@ def main_path(x, q, q_big, truth, dev, card: str) -> tuple[int, DenseIndexHandle
     t_h, (h_ids, _) = timed_search(lambda: handle.search(q[:1024], 10))
     t_f1, (f1_ids, _) = timed_search(lambda: flat.search(q[:1024], 10, rerank=True))
     t_f4, (f4_ids, _) = timed_search(lambda: flat.search(q, 10, rerank=True))
-    launches = u8_scan.u8_bin_max.launches
+    launches = k1_launches()
     for name, ids, t, b in (
         ("DenseIndexHandle.search b1024", h_ids, t_h, 1024),
         ("FlatIndex.search(rerank) b1024", f1_ids, t_f1, 1024),
@@ -469,7 +595,7 @@ def graph_routes(handle: DenseIndexHandle, x, q, truth, card: str) -> None:
     handle.flat_serve_threshold = handle.graph_filter_min = n - 1
     reset_counts()
     t, (ids, _) = timed_search(lambda: handle.search(q[:1024], 10), reps=1)
-    k1_graph = u8_scan.u8_bin_max.launches
+    k1_graph = k1_launches()
     r = recall10(ids, truth[:1024])
     half = np.zeros(n, bool)
     half[::2] = True
@@ -482,7 +608,7 @@ def graph_routes(handle: DenseIndexHandle, x, q, truth, card: str) -> None:
     five[::20] = True
     reset_counts()
     f_ids, _ = handle.search(q[:64], 10, row_mask=five)
-    k1_five = u8_scan.u8_bin_max.launches
+    k1_five = k1_launches()
     in_five = bool((f_ids >= 0).all() and five[f_ids].all())
     d_ids, _ = handle.search(x[[7, 8]], 10)
     handle.flat_serve_threshold, handle.graph_filter_min = limits
@@ -1017,7 +1143,7 @@ def rest_phase(data_dir: str, x_rest: np.ndarray, q_rest: np.ndarray, truth, dev
     print(f"filtered search: ok; GET /vectors/{probe}: max value error {err:.3g}; "
           f"streamed delete of {victim}: ok", flush=True)
     seq = batch_search(client, "rest", q_rest, 1)
-    launches = u8_scan.u8_bin_max.launches
+    launches = k1_launches()
     graph = graph_answers(coll, q_rest)
     print(f"u8_bin_max launches in phase 9: {launches}; graph answers (limit {N_REST - 1} < {N_REST} rows) "
           f"recall@10 {recall10(graph[0], torch.as_tensor(truth[:256])):.4f} [{card}]", flush=True)
@@ -1049,7 +1175,7 @@ def restart_phase(data_dir: str, q_rest: np.ndarray, before: dict, dev, card: st
     client.login()
     reset_counts()
     ids, scores, dt, lat = batch_search(client, "rest", q_rest, 1)
-    launches = u8_scan.u8_bin_max.launches
+    launches = k1_launches()
     same_ids = bool((ids == before["ids"]).all())
     same_scores = bool((scores == before["scores"]).all())
     status, _ = client.call("GET", f"/vectordb/collections/rest/vectors/{before['victim']}")
@@ -1083,7 +1209,7 @@ def served_phase(ctx: AppContext, client: RestClient, u8_handle, q4_handle, q, t
     reset_counts()
     batch_search(client, "served_u8", qr[:QUERY_ROWS], WORKERS)  # first search of the collection
     ids, _, dt, lat = batch_search(client, "served_u8", qr, WORKERS)
-    k1 = u8_scan.u8_bin_max.launches
+    k1 = k1_launches()
     served_line(f"served u8 {N} rows, {WORKERS} workers", ids, truth.cpu().numpy(), dt, lat, card)
     print(f"u8_bin_max launches in phase 11: {k1}", flush=True)
     reset_counts()
@@ -1137,7 +1263,7 @@ def grpc_phase(ctx: AppContext, served: dict, card: str) -> int:
     got, dt = grpc_find(ctx, [pb.FindSimilarVectorsRequest(
         collection_id="served_u8", dense=pb.FindSimilarDenseVectorsQuery(vector=v.tolist(), top_k=10),
     ) for v in served["qr"][:8]])
-    launches = u8_scan.u8_bin_max.launches
+    launches = k1_launches()
     want = served["ids"][:8].tolist()
     print(f"gRPC FindSimilarVectors x8: ids equal REST's {got == want}; {dt:.3f} s; "
           f"u8_bin_max launches {launches} [{card}]", flush=True)
@@ -1380,7 +1506,7 @@ def sparse_rest_phase(data_dir: str, x_hy: np.ndarray, q_rest: np.ndarray, hy_di
         collection_id="hyrest",
         sparse=pb.FindSimilarSparseVectorsQuery(values=[pb.SparsePair(index=d, value=v) for d, v in q], top_k=10),
     ) for q in queries[:8]])
-    launches = u8_scan.u8_bin_max.launches
+    launches = k1_launches()
     grpc_same = grpc_ids == [[int(i) for i in row if i >= 0] for row in after["one"][0]]
     print(f"after restart ({t_load:.1f} s): identical ids and scores {same}; deleted {victim} answers HTTP {status}; "
           f"gRPC FindSimilarVectors (sparse) x8: ids equal REST's {grpc_same}; u8_bin_max launches in phase 14: "
@@ -1441,7 +1567,7 @@ def hybrid_phase(x, q, hy_dims, hy_vals, dev, card: str) -> int:
             ids, _ = rows_of([r["results"] for r in out["responses"]])
             http_ids.append(ids)
             same_direct.append(bool((ids == direct).all()))
-        launches = u8_scan.u8_bin_max.launches
+        launches = k1_launches()
         # the oracle: RRF of the two legs' own searches, outside the count
         d_ids, _ = coll.dense.search(hq_dense, 30)
         s_ids, _ = coll.sparse.search(hq_sparse, top_k=30)
@@ -1665,7 +1791,7 @@ def bm25_phase(x, q, docs: list[str], word_ids: np.ndarray, dev, card: str) -> i
         hybrid = [{"query_vector": hq_dense[j], "query_text": hq_text[j]} for j in range(256)]
         reset_counts()
         t_hy, res = timed_search(lambda: coll.hybrid_search_batch(hybrid, top_k=10), reps=3)
-        launches = u8_scan.u8_bin_max.launches
+        launches = k1_launches()
         fused, _ = rows_of(res)
         d_ids, _ = coll.dense.search(hq_dense, 30)
         t_ids, _ = tfi.search(hq_text, top_k=30)
@@ -1819,7 +1945,7 @@ def bm25_rest_phase(data_dir: str, x_hy: np.ndarray, q_rest: np.ndarray, docs: l
     same_scan = all(bool((scan[k][0] == after[k][0]).all() and (scan[k][1] == after[k][1]).all()) for k in scan)
     scan_above, _ = dense.search(qd, 10)
     same_scan = same_scan and bool((scan_above == scan_ids).all()) and victim not in scan_above
-    launches = u8_scan.u8_bin_max.launches
+    launches = k1_launches()
     print(f"scan-only reload (flat_serve_threshold {dense.flat_serve_threshold} < {dense.index.n} rows, scan_only "
           f"{dense.index.scan_only}): tf-idf, hybrid and dense answers identical to the scan's under the limit, "
           f"{victim} absent: {same_scan}; u8_bin_max launches in phase 17: {launches} (dense capacity "
@@ -1918,14 +2044,15 @@ def h2d_gbps(dev) -> float:
 
 
 #: device-time buckets of a streamed search, by kernel name
-SPLIT = (("copy", ("Memcpy HtoD",)), ("K1", ("u8_bin_max",)), ("K2", ("subbyte_code_scores",)),
-         ("query unpack", ("unpack_queries",)), ("select and merge", ("topk", "sort", "radix", "Sort", "TopK")))
+SPLIT = (("copy", ("Memcpy HtoD",)), ("K1", ("u8_bin_max",)), ("stage 4 dots", ("u8_block_dot",)),
+         ("K2", ("subbyte_code_scores",)), ("query unpack", ("unpack_queries",)),
+         ("select and merge", ("topk", "sort", "radix", "Sort", "TopK")))
 
 
 def profile_split(name: str, fn, card: str) -> dict:
     """One torch.profiler pass over ``fn``: device ms by bucket (copies,
-    K1, K2, the query unpack, top-k selection and merges, and the rest:
-    the rescore gathers and products, masks, the rerank), beside the wall
+    K1, stage 4's dots, K2, the query unpack, top-k selection and merges,
+    and the rest: the rescore's gathers and epilogue, masks, the rerank), beside the wall
     time. Copies overlap kernels, so the sum may pass the wall time."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -1969,7 +2096,7 @@ def spill_u8_phase(x, q, truth, dev, card: str) -> dict:
     reset_counts()
     t_base, (base_ids, base_s) = timed_search(lambda: idx.search_brute(qb, 10), reps=3)
     resident_graph = {ef: idx.search(qs, 10, ef=ef)[0] for ef in (128, 256)}
-    launches += u8_scan.u8_bin_max.launches
+    launches += k1_launches()
     check_results("resident search_brute b1024 (host rerank)", base_ids, truth[:1024], t_base, card, True)
     t0 = time.perf_counter()
     idx.force_spill(keep_graph=True)
@@ -1983,14 +2110,14 @@ def spill_u8_phase(x, q, truth, dev, card: str) -> dict:
     for b, qq in ((1024, qb), (64, qs)):
         reset_counts()
         idx.search_brute(qq, 10)
-        per_batch = u8_scan.u8_bin_max.launches
+        per_batch = k1_launches()
         nbytes = flat_scan.streamed_flat_topk.last_stats["bytes"]
         t, (ids, sc) = timed_search(lambda: idx.search_brute(qq, 10), reps=3)
-        launches += u8_scan.u8_bin_max.launches
+        launches += k1_launches()
         check_results(f"streamed search_brute b{b} (K1 per chunk, host rerank)", ids, truth[:b], t, card, True)
         same, share = untied_equal(ids, base_ids[:b], base_s[:b])
         bound_ms = nbytes / (bw * 1e6)
-        print(f"  K1 launches per batch {per_batch} (capacity {cap}: {chunks} chunks of "
+        print(f"  K1 and u8_block_dot launches per batch {per_batch} each (capacity {cap}: {chunks} chunks of "
               f"{flat_scan.STREAM_CHUNK}); streamed {nbytes} B per batch; pinned H2D {bw:.2f} GB/s, so the copy "
               f"bound is {bound_ms:.2f} ms, {bound_ms / (t * 1e3):.1%} of the batch; ids equal to the resident "
               f"scan on untied slots {same} ({share:.1%} of slots) [{card}]", flush=True)
@@ -2015,7 +2142,7 @@ def spill_u8_phase(x, q, truth, dev, card: str) -> dict:
     del idx.HOSTCODES_SEEDS
     print(f"  host-codes graph ef=128 with {8 * HNSWIndex.HOSTCODES_SEEDS} random seeds: recall@10 vs the "
           f"streamed exact scan {recall_against(g_ids, out[64]['ids']):.4f} [{card}]", flush=True)
-    launches += u8_scan.u8_bin_max.launches
+    launches += k1_launches()
     os.environ.pop("COSDATA_HBM_GB", None)
     t0 = time.perf_counter()
     if not idx.maybe_promote() or idx.store.codes_on_host:
@@ -2023,7 +2150,7 @@ def spill_u8_phase(x, q, truth, dev, card: str) -> dict:
     t_promote = time.perf_counter() - t0
     reset_counts()
     ids, sc = idx.search_brute(qb, 10)
-    k1_promoted = u8_scan.u8_bin_max.launches
+    k1_promoted = k1_launches()
     launches += k1_promoted
     identical = bool((ids == base_ids).all() and (sc == base_s).all())
     print(f"spill {t_spill:.2f} s, promote {t_promote:.2f} s; promoted search_brute b1024 identical to the "
@@ -2085,9 +2212,9 @@ def beyond_hbm_section(x, q, dev, card: str) -> int:
     qs = q[:64]
     reset_counts()
     idx.search_brute(qs, 10)
-    per_batch = u8_scan.u8_bin_max.launches
+    per_batch = k1_launches()
     t, (ids, _) = timed_search(lambda: idx.search_brute(qs, 10), reps=3)
-    launches = u8_scan.u8_bin_max.launches
+    launches = k1_launches()
     print(f"beyond_hbm at {N_BEYOND} rows: build {t_build:.1f} s; streamed exact scan b64 {t * 1e3:.1f} ms = "
           f"{64 / t:.1f} q/s, K1 launches {per_batch} per batch [{card}]", flush=True)
     rec = hostcodes_graph(idx, qs, {"ids": ids, "ms": t * 1e3}, 128, f"{N_BEYOND} rows", card)
@@ -2195,7 +2322,7 @@ def spill_rest_phase(data_dir: str, x_sp: np.ndarray, q_rest: np.ndarray, dev, c
     if victim in [r["id"] for r in res] or len(res) != 10:
         fail(f"spilled streamed delete of {victim}: it came back")
     seq = batch_search(client, "spill", qr, 1)
-    launches = u8_scan.u8_bin_max.launches
+    launches = k1_launches()
     print(f"spilled filtered search: ok; streamed delete of {victim}: ok; K1 launches {launches} [{card}]", flush=True)
     if launches == 0:
         fail("the spilled REST searches never launched K1")
@@ -2216,7 +2343,7 @@ def spill_rest_phase(data_dir: str, x_sp: np.ndarray, q_rest: np.ndarray, dev, c
             coll.flush_indexes()  # promotes the codes: the device scan (K1) serves again
         reset_counts()
         r_ids, r_scores, dt, _ = batch_search(client, "spill", qr, 1)
-        k1 = u8_scan.u8_bin_max.launches
+        k1 = k1_launches()
         launches += k1
         same_ids = bool((r_ids == seq[0]).all())
         max_diff = float(np.abs(r_scores - seq[1]).max())
@@ -2297,7 +2424,7 @@ def euclidean_handle_phase(xs, q, q_big, truth_e, dev, card: str) -> dict:
     reset_counts()
     t, (ids, _) = timed_search(lambda: handle.search(q[:1024], 10))
     check_results("euclidean DenseIndexHandle.search b1024 (scan, host rerank)", ids, truth_e[:1024], t, card, True)
-    launches = u8_scan.u8_bin_max.launches
+    launches = k1_launches()
     print(f"  K1 (euclidean) launches {launches} [{card}]", flush=True)
     if launches == 0:
         fail("the euclidean scan never launched u8_bin_max")
@@ -2312,9 +2439,9 @@ def euclidean_handle_phase(xs, q, q_big, truth_e, dev, card: str) -> dict:
         fail("force_spill(keep_graph=True) did not spill the euclidean codes")
     reset_counts()
     idx.search_brute(q[:1024], 10)
-    per_batch = u8_scan.u8_bin_max.launches
+    per_batch = k1_launches()
     t, (ids, _) = timed_search(lambda: idx.search_brute(q[:1024], 10), reps=2)
-    launches += u8_scan.u8_bin_max.launches
+    launches += k1_launches()
     check_results("euclidean streamed search_brute b1024 (K1 per chunk, host rerank)", ids, truth_e[:1024], t,
                   card, True)
     chunks = -(-idx.cap // flat_scan.STREAM_CHUNK)
@@ -2346,7 +2473,7 @@ def hamming_handle_phase(xs, q, truth_e, dev, card: str) -> None:
     codes = lambda data: data.view(torch.uint8) ^ 0x80  # noqa: E731  (the u8 code of a centered byte)
     t0 = time.perf_counter()
     oracle = hamming_oracle(codes(store.quantize_queries(qb).data), codes(store.arrays.data[: idx.n]))
-    print(f"  oracle in {time.perf_counter() - t0:.1f} s; K1 launches {u8_scan.u8_bin_max.launches} (hamming "
+    print(f"  oracle in {time.perf_counter() - t0:.1f} s; K1 launches {k1_launches()} (hamming "
           f"has no bin kernel)", flush=True)
     hamming_gate("hamming DenseIndexHandle search_brute(rerank=False) b1024", vals, oracle, t, card)
     t, (ids, _) = timed_search(lambda: handle.search(qb, 10), reps=2)
@@ -2554,7 +2681,7 @@ def sharded_u8_phase(x, q, truth, dev, card: str) -> dict:
     shard_k1_check(idx, qb, mask, card)  # before the counts are reset: these launches are not the path's
     reset_counts()
     handle.search(qb, 10)
-    per_batch = u8_scan.u8_bin_max.launches
+    per_batch = k1_launches()
     t, (ids, _) = timed_search(lambda: handle.search(qb, 10))
     check_results(f"sharded u8 DenseIndexHandle.search b1024 (scan, {SHARDS} shards)", ids, tb, t, card, True)
     print(f"  u8_bin_max launches per batch {per_batch} (one per shard; capacities "
@@ -2564,11 +2691,11 @@ def sharded_u8_phase(x, q, truth, dev, card: str) -> dict:
     profile_top(lambda: handle.search(qb, 10), card)
 
     idx.flat_serve_threshold = min(sh.n for sh in idx.shards) - 1  # every shard takes its graph
-    before = u8_scan.u8_bin_max.launches
+    before = k1_launches()
     t, (ids, _) = timed_search(lambda: handle.search(qb, 10, ef=128), reps=3)
     check_results(f"sharded graph route ef=128 b1024 (limit {idx.flat_serve_threshold} per shard)", ids, tb, t,
                   card, True)
-    print(f"  u8_bin_max launches in the graph route {u8_scan.u8_bin_max.launches - before}", flush=True)
+    print(f"  u8_bin_max launches in the graph route {k1_launches() - before}", flush=True)
     del idx.flat_serve_threshold
 
     want = exact_top10(qb, x[::2]) * 2
@@ -2597,7 +2724,7 @@ def sharded_u8_phase(x, q, truth, dev, card: str) -> dict:
     print(f"  deleted {victim} absent from its own query: {victim not in got} [{card}]", flush=True)
     if victim in got:
         fail(f"21a: the deleted row {victim} answered its own query")
-    return {"launches": u8_scan.u8_bin_max.launches, "per_batch": per_batch}
+    return {"launches": k1_launches(), "per_batch": per_batch}
 
 
 def sharded_q4_phase(x, q, dev, card: str) -> dict:
@@ -2797,15 +2924,15 @@ def main() -> None:
     if missing:
         fail(f"packages the port needs are missing: {missing}")
 
-    phase("1 build u8_bin_max, subbyte_code_scores and group_topk")
+    phase("1 build u8_bin_max, subbyte_code_scores, group_topk and u8_block_dot")
     t0 = time.perf_counter()
-    libs = (u8_scan.LIBRARY, subbyte_scan.LIBRARY, group_topk.LIBRARY)
+    libs = (u8_scan.LIBRARY, subbyte_scan.LIBRARY, group_topk.LIBRARY, u8_block_dot.LIBRARY)
     with concurrent.futures.ThreadPoolExecutor(len(libs)) as ex:  # one nvcc per source, together
         logs = list(ex.map(lambda lib: lib.build(), libs))
     print(f"built {', '.join(lib.library.name for lib in libs)} in {time.perf_counter() - t0:.2f} s")
     for lib, log in zip(libs, logs):
         for line in log.splitlines():
-            if any(key in line for key in ("registers", "spill", "smem", "wgmma", "arning")):
+            if any(key in line for key in ("registers", "spill", "smem", "wgmma", "arning", "rror")):
                 print(f"  {lib.name}: {line.strip()}")
 
     phase("2 kernel against plain")
@@ -2816,6 +2943,13 @@ def main() -> None:
           f"{k1_timed[128]['ms']:.4f} ms; euclidean B=1024: kernel {k1_timed['euclidean']['ms']:.4f} ms (C=65536 "
           f"{k1_timed['euclidean_c65536']['ms']:.4f}), plain {k1_timed['euclidean']['plain_ms']:.3f} ms [{card}]")
 
+    phase("2b stage 4's u8_block_dot against plain")
+    bd_err, bd_timed = block_dot_check(gen, dev, card)
+    res = bd_timed["resident"]
+    print(f"u8_block_dot vs plain: max_abs_err {bd_err:.3g} (int32 dots bit for bit); resident B=1024 K=64 G=32 "
+          f"Dp=768: kernel {res['ms']:.4f} ms (back to back {res['ms_back_to_back']:.4f}), plain (gather, cast, "
+          f"product) {res['plain_ms']:.3f} ms, bound {res['bound_ms']:.4f} ms ({res['bound_by']}) [{card}]")
+
     phase(f"3 main path at {N} x {DIM}")
     t0 = time.perf_counter()
     x, q, q_big = clustered(N, NQ, DIM, gen, dev, NQ_APPROX)
@@ -2823,7 +2957,11 @@ def main() -> None:
     torch.cuda.synchronize()
     print(f"corpus + oracle in {time.perf_counter() - t0:.1f} s")
     launches, u8_handle = main_path(x, q, q_big, truth, dev, card)
-    (k1_per_batch,) = launches_per_batch([u8_scan.u8_bin_max], lambda: u8_handle.search(q[:1024], 10))
+    k1_per_batch, bd_per_batch = launches_per_batch([u8_scan.u8_bin_max, u8_block_dot.u8_block_dot],
+                                                    lambda: u8_handle.search(q[:1024], 10))
+    print(f"launches per b1024 batch: u8_bin_max {k1_per_batch}, u8_block_dot {bd_per_batch} [{card}]")
+    if bd_per_batch != 1 or k1_per_batch != 1:
+        fail(f"a resident b1024 scan launched K1 {k1_per_batch} and u8_block_dot {bd_per_batch} times, want 1 each")
     torch.cuda.empty_cache()
 
     phase("5 K2 against plain")
@@ -2947,7 +3085,10 @@ def main() -> None:
     # unpack res=2, B=1024, Dp=768): ms and plain_ms are single calls timed
     # alone, *_back_to_back the mean of calls queued back to back; library_ms
     # is torch._int_mm, the product only; K1 at B=128 beside it, K2's fused
-    # entry (cosine, the scan's path) beside its raw one; launches count both
+    # entry (cosine, the scan's path) beside its raw one; launches count both.
+    # u8_block_dot at B=1024, 64 blocks of 32 rows, Dp=768, its other timed
+    # shapes beside (library_ms null: no one PyTorch call computes it); its
+    # launches equal K1's at every read (k1_launches)
     print(json.dumps({"kernels": [{
         "name": "u8_bin_max",
         "route": "cuda",
@@ -2963,6 +3104,19 @@ def main() -> None:
         "euclidean": {**k1_timed["euclidean"], "launches": other["launches"],
                       "streamed_launches_per_batch": other["streamed_per_batch"],
                       "c65536": k1_timed["euclidean_c65536"]},
+    }, {
+        "name": "u8_block_dot",
+        "route": "cuda",
+        "source": "cosdata_tpu_torch/csrc/u8_block_dot.cu",
+        # no TPU kernel: XLA's gather of the winning blocks and grouped int8 einsum
+        "replaces": "cosdata_tpu/ops/flat_scan.py:284",
+        "launches": launches,
+        "launches_per_batch": bd_per_batch,
+        "streamed_launches_per_batch": spilled["per_batch"],
+        "sharded_launches_per_batch": sharded["per_batch"],
+        "max_abs_err": bd_err,
+        **bd_timed["resident"],
+        **{key.replace(" ", "_"): bd_timed[key] for key in bd_timed if key != "resident"},
     }, {
         "name": "subbyte_code_scores",
         "route": "cuda",

@@ -41,7 +41,8 @@ def _no_tf32() -> None:
 
 
 def code_bmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """int8 (..., A, D) x int8 (..., B, D)^T -> exact int32 (..., A, B)."""
+    """int8 (..., A, D) x int8 (..., B, D)^T -> exact int32 (..., A, B); two
+    (M, D), (N, D) matrices give their (M, N) product."""
     if a.device.type == "cuda":
         _no_tf32()
     out = None
@@ -51,11 +52,6 @@ def code_bmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         part = part.to(torch.int32)
         out = part if out is None else out + part
     return out
-
-
-def code_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """int8 (M, D) x int8 (N, D)^T -> exact int32 (M, N)."""
-    return code_bmm(a, b)
 
 
 def diag_code_dot(qrows: torch.Tensor, crows: torch.Tensor) -> torch.Tensor:
@@ -107,7 +103,7 @@ def dequant_dot(q: QuantizedU8, cc: torch.Tensor, vsums: torch.Tensor, d_pad: in
 
 def dot_u8(q: QuantizedU8, v: QuantizedU8) -> torch.Tensor:
     """Dequantized dot product x̂·ŷ, (Q, N)."""
-    return dequant_dot(q, code_matmul(q.data, v.data), v.sums[None, :], q.data.shape[-1])
+    return dequant_dot(q, code_bmm(q.data, v.data), v.sums[None, :], q.data.shape[-1])
 
 
 def cosine_u8(q: QuantizedU8, v: QuantizedU8) -> torch.Tensor:

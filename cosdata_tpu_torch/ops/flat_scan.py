@@ -22,8 +22,10 @@ The codes engine's five stages:
    (B, cap) scores never reach device memory;
 3. one exact ``torch.topk`` over the maxima picks the winning bins (the
    reference's ``approx_max_k(recall_target=0.999)``);
-4. the winning bins expand as contiguous (G·D)-byte block rows of the code
-   table and are rescored in u8 space, chunked over queries;
+4. the winning bins expand as contiguous (G·D)-byte blocks of the code
+   table, whose exact int8 dots the u8_block_dot kernel reads in place
+   (``kernels/u8_block_dot.py``, one launch for the batch), and are
+   rescored in u8 space;
 5. the shortlist is reranked in exact f32 against the raw rows (a hamming
    shortlist by euclidean distance, as in the reference).
 
@@ -50,6 +52,7 @@ import torch
 from cosdata_tpu_torch.ops import distance as D
 from cosdata_tpu_torch.ops.kernels.group_topk import merge_group_topk
 from cosdata_tpu_torch.ops.kernels.subbyte_scan import subbyte_scores_fused, unpack_query_codes
+from cosdata_tpu_torch.ops.kernels.u8_block_dot import u8_block_dot
 from cosdata_tpu_torch.ops.kernels.u8_scan import u8_bin_max_from_store
 from cosdata_tpu_torch.ops.quantize import QuantizedU8, quantize_u8
 from cosdata_tpu_torch.ops.storage import cos_or_dot, exact_scores, quantize_batch
@@ -63,8 +66,6 @@ MAX_BIN_TABLE = 1 << 28
 CODES_CHUNK = 1 << 16
 #: rows per bin of K1 in both (one warp of the kernel)
 CHUNK_GROUP = 32
-#: bytes of the f32 candidate block that the expansion rescoring may hold
-EXPAND_BYTES = 1 << 30
 
 
 def _topk_take(scores, k, ids):
@@ -115,36 +116,22 @@ def fused_flat_search_codes(
 
 def expand_bins(metric: str, d_pad: int, group: int, k_fetch: int, q: QuantizedU8, store: QuantizedU8,
                 valid: torch.Tensor, bin_s: torch.Tensor, bin_ids: torch.Tensor):
-    """Stage 4: the (B, k_bins) winning bins expand as contiguous (G·D)-byte
-    block rows of the code table, are rescored in u8 space (chunked over
-    queries) and cut to their top ``k_fetch``. Returns (vals, row ids); a
-    row of a sunk bin or an invalid row scores NEG_INF."""
+    """Stage 4: the (B, k_bins) winning bins expand as contiguous blocks of
+    G rows of the code table, whose exact int8 dots with the query codes
+    (:func:`u8_block_dot`, read in place on the card) are rescored in u8
+    space and cut to their top ``k_fetch``. Returns (vals, row ids); a row
+    of a sunk bin or an invalid row scores NEG_INF."""
     b, k_bins = bin_ids.shape
     cap_g = store.data.shape[0] // group
     p_total = k_bins * group
-    kf = min(k_fetch, p_total)
+    cc = u8_block_dot(q.data, store.data, bin_ids, group)
+    dot = D.dequant_dot(q, cc, store.sums.view(cap_g, group)[bin_ids].view(b, p_total), d_pad)
+    sc = cos_or_dot(metric, dot, q.mags, store.mags.view(cap_g, group)[bin_ids].view(b, p_total))
     live_bin = bin_s > NEG_INF / 2
-    data_blk = store.data.view(cap_g, group * d_pad)
-    sums_blk = store.sums.view(cap_g, group)
-    mags_blk = store.mags.view(cap_g, group)
-    valid_blk = valid.view(cap_g, group)
-    offs = torch.arange(group, device=bin_ids.device)
-    q_rows = max(1, EXPAND_BYTES // (p_total * d_pad * 4))
-    vals = torch.empty((b, kf), dtype=torch.float32, device=bin_ids.device)
-    ids = torch.empty((b, kf), dtype=torch.int64, device=bin_ids.device)
-    for s in range(0, b, q_rows):
-        e = min(s + q_rows, b)
-        sel = bin_ids[s:e]
-        cdata = data_blk[sel].view(e - s, p_total, d_pad)
-        cc = D.diag_code_dot(q.data[s:e], cdata)
-        qs = q._replace(data=q.data[s:e], sums=q.sums[s:e], mags=q.mags[s:e])
-        dot = D.dequant_dot(qs, cc, sums_blk[sel].view(e - s, p_total), d_pad)
-        sc = cos_or_dot(metric, dot, qs.mags, mags_blk[sel].view(e - s, p_total))
-        live = valid_blk[sel].view(e - s, p_total) & live_bin[s:e].repeat_interleave(group, 1)
-        sc = torch.where(live, sc, NEG_INF)
-        rows = (sel[:, :, None] * group + offs).view(e - s, p_total)
-        vals[s:e], ids[s:e] = _topk_take(sc, kf, rows)
-    return vals, ids
+    live = valid.view(cap_g, group)[bin_ids].view(b, p_total) & live_bin.repeat_interleave(group, 1)
+    sc = torch.where(live, sc, NEG_INF)
+    rows = (bin_ids[:, :, None] * group + torch.arange(group, device=bin_ids.device)).view(b, p_total)
+    return _topk_take(sc, min(k_fetch, p_total), rows)
 
 
 def codes_chunk_topk(metric: str, d_pad: int, k: int, q: QuantizedU8, chunk: QuantizedU8,

@@ -22,7 +22,7 @@ import ctypes
 
 import torch
 
-from cosdata_tpu_torch.ops.distance import code_matmul, safe_div
+from cosdata_tpu_torch.ops.distance import code_bmm, safe_div
 from cosdata_tpu_torch.ops.kernels.nvcc import CudaLibrary
 from cosdata_tpu_torch.ops.quantize import QuantizedSubByte, subbyte_values
 from cosdata_tpu_torch.ops.topk import NEG_INF
@@ -63,7 +63,7 @@ def subbyte_code_scores_plain(q_planes: torch.Tensor, planes: torch.Tensor, d: i
     """Plain PyTorch version: unpack both sides to codes, then the exact
     code product (int32 on the CPU; on CUDA an f32 product with TF32 off,
     exact because every partial sum is at most 49·d < 2^24)."""
-    return code_matmul(subbyte_values(q_planes, d), subbyte_values(planes, d))
+    return code_bmm(subbyte_values(q_planes, d), subbyte_values(planes, d))
 
 
 def _check_planes(name: str, x: torch.Tensor, w: int, device: torch.device) -> None:

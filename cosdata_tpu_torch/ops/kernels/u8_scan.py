@@ -45,7 +45,7 @@ from typing import NamedTuple
 
 import torch
 
-from cosdata_tpu_torch.ops.distance import code_matmul, sqrt_rn
+from cosdata_tpu_torch.ops.distance import code_bmm, sqrt_rn
 from cosdata_tpu_torch.ops.kernels.nvcc import CudaLibrary
 from cosdata_tpu_torch.ops.quantize import QuantizedU8
 
@@ -155,7 +155,7 @@ def u8_bin_max_plain(metric: str, group: int, t: BinMaxTerms | EuclideanTerms) -
     step = max(PLAIN_ROW_CHUNK // group, 1) * group
     for s in range(0, c, step):
         e = min(s + step, c)
-        cc = code_matmul(t.q_codes, t.codes[s:e])
+        cc = code_bmm(t.q_codes, t.codes[s:e])
         if metric == "euclidean":
             m = _euclidean_scores(t, cc, s, e).view(b, (e - s) // group, group).amax(-1)
             out[:, s // group : e // group] = torch.where(m == -torch.inf, SINK, m + 0.0)

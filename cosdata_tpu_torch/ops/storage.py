@@ -616,10 +616,10 @@ def score_table(metric: str, kind: str, d: int, q, store) -> torch.Tensor:
     they equal :func:`scores_gathered`'s; f16/f32 products may differ from
     them in the f32 summation order."""
     if kind == "u8":
-        cc = D.code_matmul(q.data, store.data)
+        cc = D.code_bmm(q.data, store.data)
         return cos_or_dot(metric, D.dequant_dot(q, cc, store.sums[None, :], d), q.mags, store.mags[None, :])
     if kind == "subbyte":
-        code_dot = D.code_matmul(word_major_codes(q.planes), word_major_codes(store.planes))
+        code_dot = D.code_bmm(word_major_codes(q.planes), word_major_codes(store.planes))
         dot = (
             q.a * q.a * code_dot.to(torch.float32)
             + q.a * q.b * (q.sums.to(torch.float32)[:, None] + store.sums.to(torch.float32)[None, :])

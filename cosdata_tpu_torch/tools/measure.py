@@ -56,15 +56,33 @@ def device_ms(fn, reps: int) -> float:
 #: operations per second, float32 operations per second outside the tensor
 #: cores and device-memory bytes per second
 INT8_OPS_PER_S, F32_OPS_PER_S, HBM_BYTES_PER_S = 1979e12, 67e12, 3.35e12
+#: int8 operations per second by ``__dp4a`` outside the tensor cores, which
+#: no data sheet gives: taken as 64 a clock on each of the 132 SMs (an SM's
+#: 64 INT32 lanes), each 4 multiply-adds (8 operations), at the 1,980 MHz
+#: boost clock
+DP4A_OPS_PER_S = 132 * 64 * 8 * 1.98e9
 
 
-def bound(ops: float, nbytes: float, f32_ops: float = 0.0) -> tuple[float, str]:
-    """The least time (ms) the card could take for ``ops`` int8 operations
-    and ``f32_ops`` float32 operations moving ``nbytes``: the largest of the
-    three times, and whether operations or bytes set it."""
-    t_ops = max(ops / INT8_OPS_PER_S, f32_ops / F32_OPS_PER_S) * 1e3
+def bound(ops: float, nbytes: float, f32_ops: float = 0.0, dp4a_ops: float = 0.0) -> tuple[float, str]:
+    """The least time (ms) the card could take for ``ops`` int8 tensor-core
+    operations, ``f32_ops`` float32 and ``dp4a_ops`` int8 ``__dp4a``
+    operations moving ``nbytes``: the largest of the times, and whether
+    operations or bytes set it."""
+    t_ops = max(ops / INT8_OPS_PER_S, f32_ops / F32_OPS_PER_S, dp4a_ops / DP4A_OPS_PER_S) * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def block_dot_bytes(block_ids: torch.Tensor, group: int, dp: int) -> tuple[int, int]:
+    """The bytes stage 4's exact dots (``kernels/u8_block_dot.py``) must
+    move for (B, K) ``block_ids`` of ``group`` rows of ``dp`` bytes: each
+    distinct block read once, the query codes and the ids read, the
+    (B, K·group) int32 dots written. Then the same with each query reading
+    its own blocks, what a design without reuse across queries reads."""
+    b, k = block_ids.shape
+    fixed = b * dp + 8 * b * k + 4 * b * k * group
+    distinct = int(torch.unique(block_ids).numel())
+    return distinct * group * dp + fixed, b * k * group * dp + fixed
 
 
 def clustered(n: int, nq: int, d: int, gen: torch.Generator, dev, *more: int):

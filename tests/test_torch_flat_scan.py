@@ -184,5 +184,5 @@ def test_scores_gathered_and_rerank(case):
 def test_int8_products_do_not_wrap():
     """An int8 torch.mm wraps; the port's code products are exact int32."""
     a = torch.full((2, 256), -128, dtype=torch.int8)
-    assert (TD.code_matmul(a, a) == 256 * 128 * 128).all()
+    assert (TD.code_bmm(a, a) == 256 * 128 * 128).all()
     assert (TD.diag_code_dot(a, a[:, None, :].expand(2, 3, 256)) == 256 * 128 * 128).all()

@@ -154,7 +154,7 @@ def test_word_major_codes_give_the_plain_dots(res, d_pad, d_true, chunk):
     rows = slice(64, 192) if chunk else slice(None)
     planes = _planes(store)[:, rows]
     assert chunk == (planes.shape[1] < C) and (res == 1 or not chunk or not planes.is_contiguous())
-    got = TD.code_matmul(K.word_major_codes(_planes(q)), K.word_major_codes(planes))
+    got = TD.code_bmm(K.word_major_codes(_planes(q)), K.word_major_codes(planes))
     assert got.dtype == torch.int32 and got.shape == (B, planes.shape[1])
     np.testing.assert_array_equal(got.numpy(), K.subbyte_code_scores_plain(_planes(q), planes, d_pad).numpy())
     want = np.asarray(pallas_code_scores(

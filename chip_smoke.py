@@ -15,13 +15,16 @@ parallel; 2 K1
 against its plain PyTorch version at the u8 path's shapes and the tiles'
 edges and at Dp=4,096, by cosine, dot and euclidean, bins bit for bit,
 timed beside its bound and torch._int_mm (cosine at B=1024 and 128,
-euclidean at B=1024 at C=1,048,576 and 65,536); 2b u8_block_dot against
-its plain version, int32 dots bit for bit, at a resident scan's shape (B
-1,024, 64 blocks of 32 rows, Dp 768), at Dp 1,024, at a streamed chunk's
-(50 blocks) and with blocks of one row, timed beside its bound and the
-plain version (the gathered copy, its f32 cast and the batched product),
-then at small ragged shapes; expand_bins over a whole batch equal to its
-slices; 3 the u8
+euclidean at B=1024 at C=1,048,576 and 65,536); 2b u8_block_dot (stage 4:
+the dots, the dequantisation, the metric and the mask in one kernel)
+against its plain version, f32 scores bit for bit by cosine, dot and
+euclidean, at a resident scan's shape (B 1,024, 64 blocks of 32 rows, Dp
+768), at Dp 1,024, at a streamed chunk's (50 blocks) and with blocks of
+one row, timed beside its bound and the plain version (the gathered copy,
+its f32 cast, the batched product and the rescore), then at small ragged
+shapes, with all 1,024 queries choosing the same 64 blocks and on the
+bins K1 picks for clustered queries (timed too); expand_bins over a whole
+batch equal to its slices; 3 the u8
 path at 1M x 768: a DenseIndexHandle filled as the reference's bench fills
 it (983,616 rows in one call: the graph's bulk build), one search, then 16
 insertion waves of 1,024 rows, searched through DenseIndexHandle.search
@@ -339,65 +342,81 @@ def kernel_check(gen, dev, card: str) -> tuple[float, dict]:
 #: block, Dp). Timed: a resident scan's (k_bins_for(50) = 64 bins of 32), the
 #: same at the L2 cell's Dp 1,024, a streamed 65,536-row chunk's (50 bins)
 #: and group 1 (rows by id, as a graph wave would pass them); then ragged
-#: tiles and widths at small sizes
+#: shapes and widths at small sizes, and every query choosing the same 64
+#: blocks (one list of 1,024 entries a block)
 BLOCK_DOT_TIMED = [("resident", 1024, 1_048_576, 64, 32, 768), ("resident Dp 1024", 1024, 1_048_576, 64, 32, 1024),
                    ("streamed chunk", 1024, 65_536, 50, 32, 768), ("group 1", 1024, 1_048_576, 256, 1, 768)]
 BLOCK_DOT_CHECKED = [("B=1", 1, 4_128, 7, 32, 768), ("ragged", 100, 4_128, 7, 32, 128),
-                     ("wide", 100, 4_128, 7, 32, 4_096), ("group 1 ragged", 100, 4_128, 33, 1, 768)]
+                     ("wide", 100, 4_128, 7, 32, 4_096), ("group 1 ragged", 100, 4_128, 33, 1, 768),
+                     ("shared blocks", 1024, 1_048_576, 64, 32, 768)]
+#: the metric each timed shape is timed by: the L2 cell's euclidean at Dp
+#: 1,024, cosine elsewhere (every shape is checked by all three)
+BLOCK_DOT_TIMED_METRIC = {"resident Dp 1024": "euclidean"}
+BLOCK_DOT_METRICS = ("cosine", "dot", "euclidean")
 #: queries a slice of the expansion took before the kernel at the resident
 #: shape: 2^30 bytes of f32 blocks over 64 x 32 rows of 768 codes
 PARENT_SLICE = (1 << 30) // (64 * 32 * 768 * 4)
 
 
-def block_dot_inputs(gen, dev, b: int, rows: int, k: int, group: int, dp: int):
+def block_dot_inputs(gen, dev, what: str, b: int, rows: int, k: int, group: int, dp: int):
     """A quantized store of ``rows`` random rows (codes saturate at both
-    ends of the int8 range, so many tie), b quantized queries and (B, k)
-    block ids: distinct random blocks a query where the (B, blocks) draw is
-    small, random ones otherwise; query 0's codes set to -128 and the last
-    block to -128 (the largest sum), every query's last id the last block."""
+    ends of the int8 range, so many tie), every 97th row invalid, b
+    quantized queries, (B, k) block ids and their bin maxima, in descending
+    order, the last five of every seventh query's sunk: distinct random
+    blocks a query where the (B, blocks) draw is small, random ones
+    otherwise, the same k for every query in "shared blocks"; query 0's
+    codes set to -128 and the last block to -128 (the largest sum), every
+    query's last id the last block."""
     d_true = dp - 28
     store = quantize_u8(torch.rand((rows, dp), generator=gen, device=dev) * 2 - 1, -0.6, 0.7, d_true)
     q = quantize_u8(torch.rand((b, dp), generator=gen, device=dev) * 2 - 1, -0.6, 0.7, d_true)
     n_blocks = rows // group
     store.data[-group:] = -128
     q.data[0] = -128
-    if b * n_blocks <= 1 << 28:
+    if what == "shared blocks":
+        ids = torch.randperm(n_blocks, generator=gen, device=dev)[:k].repeat(b, 1)
+    elif b * n_blocks <= 1 << 28:
         ids = torch.topk(torch.rand((b, n_blocks), generator=gen, device=dev), k, dim=1).indices
     else:
         ids = torch.randint(0, n_blocks, (b, k), generator=gen, device=dev)
     ids[:, -1] = n_blocks - 1
-    return q, store, ids.contiguous()
+    valid = torch.ones(rows, dtype=torch.bool, device=dev)
+    valid[::97] = False
+    bin_s = torch.sort(torch.rand((b, k), generator=gen, device=dev), dim=1, descending=True).values
+    bin_s[::7, -5:] = NEG_INF
+    if dp * 128 * 128 not in u8_block_dot.u8_block_dot_plain(q.data[:1], store.data, ids[:1], group)[0].tolist():
+        fail(f"the largest sum is not among the inputs of {what}")
+    return q, store, valid, bin_s, ids.contiguous()
 
 
-def block_dot_against_plain(q, store, ids, group: int, where: str) -> float:
-    """u8_block_dot against its plain version: int32 dots bit for bit.
+def block_dot_against_plain(metric: str, q, store, valid, bin_s, ids, group: int, where: str) -> float:
+    """u8_block_dot against its plain version: f32 scores bit for bit.
     Returns the max abs error (0); fails otherwise."""
-    got = u8_block_dot.u8_block_dot(q.data, store.data, ids, group)
-    want = u8_block_dot.u8_block_dot_plain(q.data, store.data, ids, group)
+    dp = q.data.shape[1]
+    got = u8_block_dot.u8_block_dot(metric, dp, group, q, store, valid, bin_s, ids)
+    want = u8_block_dot.block_scores_plain(metric, dp, group, q, store, valid, bin_s, ids)
     torch.cuda.synchronize()
-    if got.shape != want.shape or got.dtype != torch.int32:
-        fail(f"u8_block_dot gave {got.dtype} {tuple(got.shape)}, want int32 {tuple(want.shape)} at {where}")
-    e = float((got.to(torch.int64) - want.to(torch.int64)).abs().max()) if got.numel() else 0.0
-    if not torch.equal(got, want):
-        fail(f"u8_block_dot differs from its plain version at {where}: max abs {e}")
-    if q.data[0].shape[0] * 128 * 128 not in want[0].tolist():
-        fail(f"the largest sum was not reached at {where}")
+    if got.shape != want.shape or got.dtype != torch.float32:
+        fail(f"u8_block_dot gave {got.dtype} {tuple(got.shape)}, want float32 {tuple(want.shape)} at {where}")
+    e = float((got.double() - want.double()).abs().max()) if got.numel() else 0.0
+    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+        fail(f"u8_block_dot's {metric} scores differ from its plain version at {where}: max abs {e}")
     return e
 
 
 def expansion_unsliced(q, store, ids, gen, card: str) -> None:
     """flat_scan.expand_bins over the whole batch (one u8_block_dot launch,
-    the epilogue and top-k over all B rows) against the same function run
-    on slices of PARENT_SLICE queries, as the expansion ran before the
-    kernel: vals and ids equal, by cosine, dot and euclidean, with sunk
-    bins and tied codes."""
+    the top-k over all B rows) against the same function run on slices of
+    PARENT_SLICE queries, as the expansion ran before the kernel: vals and
+    ids equal, by cosine, dot and euclidean, with sunk bins and tied
+    codes."""
     b, k = ids.shape
     dp = q.data.shape[1]
     bin_s = torch.sort(torch.rand((b, k), generator=gen, device=ids.device), dim=1, descending=True).values
     bin_s[::7, -5:] = NEG_INF  # sunk bins
     valid = torch.ones(store.data.shape[0], dtype=torch.bool, device=ids.device)
     valid[::97] = False
-    for metric in ("cosine", "dot", "euclidean"):
+    for metric in BLOCK_DOT_METRICS:
         whole = flat_scan.expand_bins(metric, dp, 32, 50, q, store, valid, bin_s, ids)
         parts = [flat_scan.expand_bins(metric, dp, 32, 50, q._replace(data=q.data[s : s + PARENT_SLICE],
                                                                         sums=q.sums[s : s + PARENT_SLICE],
@@ -411,35 +430,86 @@ def expansion_unsliced(q, store, ids, gen, card: str) -> None:
             fail(f"expand_bins over the whole batch differs from its slices ({metric})")
 
 
-def block_dot_check(gen, dev, card: str) -> tuple[float, dict]:
-    """Phase 2b: u8_block_dot against its plain version, bit for bit, at
-    BLOCK_DOT_TIMED (timed beside the bound, the plain version being the
-    gathered copy, its f32 cast and the batched product) and
-    BLOCK_DOT_CHECKED; expand_bins whole against its slices. Returns
-    (max_abs_err, timings by case)."""
+def block_dot_timing(where: str, metric: str, q, store, valid, bin_s, ids, group: int, card: str) -> dict:
+    """The kernel (its inversion included) timed beside its plain version
+    and its bound: the bytes of block_dot_bytes (each distinct block once)
+    and 2·B·K·group·Dp int8 tensor-core operations; beside them the
+    inversion alone and the bound of a design that reads each query's
+    blocks for it alone."""
+    b, k = ids.shape
+    dp = q.data.shape[1]
+    nbytes, per_query = block_dot_bytes(ids, group, dp)
+    ops = 2.0 * b * k * group * dp
+    t = kernel_timing(f"{where} {metric}",
+                      lambda: u8_block_dot.u8_block_dot(metric, dp, group, q, store, valid, bin_s, ids),
+                      lambda: u8_block_dot.block_scores_plain(metric, dp, group, q, store, valid, bin_s, ids), None,
+                      3, ops, nbytes, card)
+    n_blocks = store.data.shape[0] // group
+    t["invert_ms_back_to_back"] = device_ms(lambda: u8_block_dot.invert(ids), 20)
+    t["bound_per_query_ms"] = bound(ops, per_query)[0]
+    chosen = torch.bincount(ids.view(-1), minlength=n_blocks)
+    t["distinct_blocks"] = int((chosen > 0).sum())
+    t["most_entries_a_block"] = int(chosen.max())
+    print(f"    inversion (the sort) {t['invert_ms_back_to_back']:.4f} ms back to back; bytes: distinct "
+          f"blocks {nbytes} ({t['distinct_blocks']} blocks, at most {t['most_entries_a_block']} entries a block), "
+          f"each query its own {per_query} (bound {t['bound_per_query_ms']:.4f} ms) [{card}]", flush=True)
+    return t
+
+
+def clustered_block_dot(dev, card: str) -> tuple[float, dict]:
+    """Stage 4 on the winning bins that K1 picks for clustered queries
+    (tools/measure.py:clustered, a 1M x 768 corpus of its own seed, the
+    range the handle tunes): per metric, K1's 64 best bins of 32 rows a
+    query, the kernel's scores bit for bit against its plain version;
+    timed by cosine. Returns (max_abs_err, timing)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    x, qx = clustered(N, 1024, DIM, gen, dev)
+    lo, hi = tune_dense_range(x[:1000].cpu().numpy())
+    store, q = quantize_u8(x, lo, hi, DIM), quantize_u8(qx, lo, hi, DIM)
+    del x
+    valid = torch.ones(N, dtype=torch.bool, device=dev)
     max_err, timed = 0.0, {}
-    for what, b, rows, k, group, dp in BLOCK_DOT_TIMED + BLOCK_DOT_CHECKED:
-        q, store, ids = block_dot_inputs(gen, dev, b, rows, k, group, dp)
-        where = f"{what}: B={b} rows={rows} K={k} G={group} Dp={dp}"
-        e = block_dot_against_plain(q, store, ids, group, where)
+    for metric in BLOCK_DOT_METRICS:
+        bins = u8_scan.u8_bin_max_from_store(metric, 32, q, store, valid, DIM)
+        bin_s, ids = torch.topk(bins, 64, dim=1)
+        del bins
+        where = f"clustered: B=1024 rows={N} K=64 G=32 Dp={DIM} (K1's bins by {metric})"
+        e = block_dot_against_plain(metric, q, store, valid, bin_s, ids, 32, where)
         max_err = max(max_err, e)
         print(f"  {where} (bit for bit) max_abs_err {e:.3g}", flush=True)
+        if metric == "cosine":
+            timed = block_dot_timing("clustered", metric, q, store, valid, bin_s, ids, 32, card)
+    del store, q
+    torch.cuda.empty_cache()
+    return max_err, timed
+
+
+def block_dot_check(gen, dev, card: str) -> tuple[float, dict]:
+    """Phase 2b: u8_block_dot against its plain version, f32 scores bit for
+    bit by cosine, dot and euclidean, at BLOCK_DOT_TIMED (timed beside the
+    bound, the plain version being the gathered copy, its f32 cast, the
+    batched product and the rescore), BLOCK_DOT_CHECKED and the clustered
+    bins; expand_bins whole against its slices. Returns (max_abs_err,
+    timings by case)."""
+    max_err, timed = 0.0, {}
+    for what, b, rows, k, group, dp in BLOCK_DOT_TIMED + BLOCK_DOT_CHECKED:
+        q, store, valid, bin_s, ids = block_dot_inputs(gen, dev, what, b, rows, k, group, dp)
+        where = f"{what}: B={b} rows={rows} K={k} G={group} Dp={dp}"
+        errs = []
+        for metric in BLOCK_DOT_METRICS:
+            e = block_dot_against_plain(metric, q, store, valid, bin_s, ids, group, f"{where} {metric}")
+            errs.append(f"{metric}:{e:.3g}")
+            max_err = max(max_err, e)
+        print(f"  {where} (bit for bit) max_abs_err {' '.join(errs)}", flush=True)
         if what == "resident":
             expansion_unsliced(q, store, ids, gen, card)
         if (what, b, rows, k, group, dp) in BLOCK_DOT_TIMED:
-            nbytes, per_query = block_dot_bytes(ids, group, dp)
-            dp4a_ops = 2.0 * b * k * group * dp
-            t = kernel_timing(where, lambda: u8_block_dot.u8_block_dot(q.data, store.data, ids, group),
-                              lambda: u8_block_dot.u8_block_dot_plain(q.data, store.data, ids, group), None, 3,
-                              0.0, nbytes, card, dp4a_ops=dp4a_ops)
-            t["bound_per_query_ms"] = bound(0.0, per_query, dp4a_ops=dp4a_ops)[0]
-            print(f"    bytes: distinct blocks {nbytes}, each query its own {per_query} (bound "
-                  f"{t['bound_per_query_ms']:.4f} ms); {dp4a_ops:.3g} int8 operations "
-                  f"({bound(0.0, 0.0, dp4a_ops=dp4a_ops)[0]:.4f} ms at the __dp4a rate) [{card}]", flush=True)
-            timed[what] = t
-        del q, store, ids
+            metric = BLOCK_DOT_TIMED_METRIC.get(what, "cosine")
+            timed[what] = block_dot_timing(where, metric, q, store, valid, bin_s, ids, group, card)
+        del q, store, valid, bin_s, ids
         torch.cuda.empty_cache()
-    return max_err, timed
+    e, timed["clustered"] = clustered_block_dot(dev, card)
+    return max(max_err, e), timed
 
 
 def check_results(name: str, ids, truth: torch.Tensor, t: float, card: str, gate: bool) -> None:
@@ -2946,9 +3016,11 @@ def main() -> None:
     phase("2b stage 4's u8_block_dot against plain")
     bd_err, bd_timed = block_dot_check(gen, dev, card)
     res = bd_timed["resident"]
-    print(f"u8_block_dot vs plain: max_abs_err {bd_err:.3g} (int32 dots bit for bit); resident B=1024 K=64 G=32 "
+    res, clu = bd_timed["resident"], bd_timed["clustered"]
+    print(f"u8_block_dot vs plain: max_abs_err {bd_err:.3g} (f32 scores bit for bit); resident B=1024 K=64 G=32 "
           f"Dp=768: kernel {res['ms']:.4f} ms (back to back {res['ms_back_to_back']:.4f}), plain (gather, cast, "
-          f"product) {res['plain_ms']:.3f} ms, bound {res['bound_ms']:.4f} ms ({res['bound_by']}) [{card}]")
+          f"product, rescore) {res['plain_ms']:.3f} ms, bound {res['bound_ms']:.4f} ms ({res['bound_by']}); "
+          f"clustered bins back to back {clu['ms_back_to_back']:.4f} ms, bound {clu['bound_ms']:.4f} [{card}]")
 
     phase(f"3 main path at {N} x {DIM}")
     t0 = time.perf_counter()
@@ -3086,9 +3158,10 @@ def main() -> None:
     # alone, *_back_to_back the mean of calls queued back to back; library_ms
     # is torch._int_mm, the product only; K1 at B=128 beside it, K2's fused
     # entry (cosine, the scan's path) beside its raw one; launches count both.
-    # u8_block_dot at B=1024, 64 blocks of 32 rows, Dp=768, its other timed
-    # shapes beside (library_ms null: no one PyTorch call computes it); its
-    # launches equal K1's at every read (k1_launches)
+    # u8_block_dot (the whole of stage 4, its inversion included) at B=1024,
+    # 64 blocks of 32 rows, Dp=768, its other timed shapes and K1's bins for
+    # clustered queries beside (library_ms null: no one PyTorch call computes
+    # it); its launches equal K1's at every read (k1_launches)
     print(json.dumps({"kernels": [{
         "name": "u8_bin_max",
         "route": "cuda",

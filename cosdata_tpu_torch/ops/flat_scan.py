@@ -23,9 +23,10 @@ The codes engine's five stages:
 3. one exact ``torch.topk`` over the maxima picks the winning bins (the
    reference's ``approx_max_k(recall_target=0.999)``);
 4. the winning bins expand as contiguous (G·D)-byte blocks of the code
-   table, whose exact int8 dots the u8_block_dot kernel reads in place
-   (``kernels/u8_block_dot.py``, one launch for the batch), and are
-   rescored in u8 space;
+   table, rescored in u8 space by the u8_block_dot kernel
+   (``kernels/u8_block_dot.py``, one launch for the batch: each chosen
+   block read once, its int8 dots and scores for every query that chose
+   it), then cut to their top-k;
 5. the shortlist is reranked in exact f32 against the raw rows (a hamming
    shortlist by euclidean distance, as in the reference).
 
@@ -55,7 +56,7 @@ from cosdata_tpu_torch.ops.kernels.subbyte_scan import subbyte_scores_fused, unp
 from cosdata_tpu_torch.ops.kernels.u8_block_dot import u8_block_dot
 from cosdata_tpu_torch.ops.kernels.u8_scan import u8_bin_max_from_store
 from cosdata_tpu_torch.ops.quantize import QuantizedU8, quantize_u8
-from cosdata_tpu_torch.ops.storage import cos_or_dot, exact_scores, quantize_batch
+from cosdata_tpu_torch.ops.storage import exact_scores, quantize_batch
 from cosdata_tpu_torch.ops.storage import rerank as rerank_raw
 from cosdata_tpu_torch.ops.topk import NEG_INF, lax_top_k
 
@@ -117,21 +118,13 @@ def fused_flat_search_codes(
 def expand_bins(metric: str, d_pad: int, group: int, k_fetch: int, q: QuantizedU8, store: QuantizedU8,
                 valid: torch.Tensor, bin_s: torch.Tensor, bin_ids: torch.Tensor):
     """Stage 4: the (B, k_bins) winning bins expand as contiguous blocks of
-    G rows of the code table, whose exact int8 dots with the query codes
-    (:func:`u8_block_dot`, read in place on the card) are rescored in u8
-    space and cut to their top ``k_fetch``. Returns (vals, row ids); a row
+    G rows of the code table, rescored in u8 space (:func:`u8_block_dot`:
+    on the card one launch reads each chosen block once and writes the
+    scores) and cut to their top ``k_fetch``. Returns (vals, row ids); a row
     of a sunk bin or an invalid row scores NEG_INF."""
-    b, k_bins = bin_ids.shape
-    cap_g = store.data.shape[0] // group
-    p_total = k_bins * group
-    cc = u8_block_dot(q.data, store.data, bin_ids, group)
-    dot = D.dequant_dot(q, cc, store.sums.view(cap_g, group)[bin_ids].view(b, p_total), d_pad)
-    sc = cos_or_dot(metric, dot, q.mags, store.mags.view(cap_g, group)[bin_ids].view(b, p_total))
-    live_bin = bin_s > NEG_INF / 2
-    live = valid.view(cap_g, group)[bin_ids].view(b, p_total) & live_bin.repeat_interleave(group, 1)
-    sc = torch.where(live, sc, NEG_INF)
-    rows = (bin_ids[:, :, None] * group + torch.arange(group, device=bin_ids.device)).view(b, p_total)
-    return _topk_take(sc, min(k_fetch, p_total), rows)
+    sc = u8_block_dot(metric, d_pad, group, q, store, valid, bin_s, bin_ids)
+    vals, pos = torch.topk(sc, min(k_fetch, sc.shape[1]), dim=1)
+    return vals, torch.gather(bin_ids, 1, pos // group) * group + pos % group
 
 
 def codes_chunk_topk(metric: str, d_pad: int, k: int, q: QuantizedU8, chunk: QuantizedU8,

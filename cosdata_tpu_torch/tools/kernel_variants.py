@@ -12,7 +12,12 @@ its raw int32 entry and its fused entry by dot and by cosine (a mask of
 every row; the fused scores held bit for bit); group_topk at B=1024,
 C=65,536, k=200 on the first and the last merge of a quaternary cosine
 scan of 1,000,000 clustered rows (``measure.quaternary_scan_merges``),
-its sorted values held bit for bit against its plain version. Needs one
+its sorted values held bit for bit against its plain version;
+u8_block_dot (stage 4: the sort and the kernel) by cosine at B=1024, 64
+blocks of 32 rows a query, Dp=768, on random blocks of the 1M table, on a
+65,536-row chunk (50 blocks a query) and on the bins K1 picks for 1,024
+clustered queries, its scores held bit for bit, beside the sort alone.
+Needs one
 CUDA card and nvcc; each variant's SASS is counted by opcode where
 cuobjdump is found. Run from the repository root:
 
@@ -35,6 +40,13 @@ Variants:
                   survivors held in registers
   gt_trace        group_topk timing each row's warp in four phases (the
                   global timer) into an output of its own (timing only)
+  bd              u8_block_dot as it is (windows of 16 entries, 2 stages,
+                  slices of 256 bytes)
+  bd_w32, bd_w64  windows of 32 or 64 sorted entries a CTA
+  bd_st3          3 stages in the ring
+  bd_s128         slices of 128 bytes (one TMA box a step)
+  bd_no_products  the walk and its copies without the products and the
+                  epilogue (timing only)
 """
 
 from __future__ import annotations
@@ -51,13 +63,13 @@ from pathlib import Path
 
 import torch
 
-from cosdata_tpu_torch.ops.kernels import group_topk, nvcc, subbyte_scan, u8_scan
+from cosdata_tpu_torch.ops.kernels import group_topk, nvcc, subbyte_scan, u8_block_dot, u8_scan
 from cosdata_tpu_torch.ops.quantize import quantize_subbyte, quantize_u8
 from cosdata_tpu_torch.tools.measure import card_line, clustered, device_ms, quaternary_scan_merges
 
 CSRC = Path(nvcc.__file__).resolve().parents[2] / "csrc"
-K1, K2, GT = "u8_bin_max", "subbyte_code_scores", "group_topk"
-MODULES = {K1: u8_scan, K2: subbyte_scan, GT: group_topk}
+K1, K2, GT, BD = "u8_bin_max", "subbyte_code_scores", "group_topk", "u8_block_dot"
+MODULES = {K1: u8_scan, K2: subbyte_scan, GT: group_topk, BD: u8_block_dot}
 VARIANTS = {
     "k1": (K1, []),
     "k2": (K2, []),
@@ -71,6 +83,13 @@ VARIANTS = {
     "gt_slack256": (GT, [("constexpr int kSlack = 512;", "constexpr int kSlack = 256;")]),
     "gt_no_drop": (GT, [("if (n - k <= 32) {", "if (false) {")]),
     "gt_buffer": (GT, [("if (n <= 8 * 32) {", "if (false) {")]),
+    "bd": (BD, []),
+    "bd_w32": (BD, [("u8_block_dot.cuh", "constexpr int kWindow = 16;", "constexpr int kWindow = 32;")]),
+    "bd_w64": (BD, [("u8_block_dot.cuh", "constexpr int kWindow = 16;", "constexpr int kWindow = 64;")]),
+    "bd_st3": (BD, [("u8_block_dot.cuh", "constexpr int kStages = 2;", "constexpr int kStages = 3;")]),
+    "bd_s128": (BD, [("u8_block_dot.cuh", "constexpr int kSlice = 256;", "constexpr int kSlice = 128;")]),
+    "bd_no_products": (BD, [("      slice_products(sh.rows[st], sh.queries[st], m0, n0, slice_width(a.dp, s), lane, acc);\n"
+                             "      if (s == slices - 1) write_scores(", "      if (s == slices - 1 && a.dp < 0) write_scores(")]),
 }
 #: gt_trace adds an output, trace (B, 4) int32, the last argument of the
 #: launch: each row's warp's time (the global timer, ns) in four phases: T,
@@ -154,6 +173,29 @@ def trace_line(lib: nvcc.CudaLibrary, scores, gmax, top_s, top_i, start: int) ->
             f"select and output {med[3]}; total {float(us.sum(1).median()):.2f}")
 
 
+def block_dot_inputs(store, valid, gen, dev) -> dict:
+    """Stage 4's inputs (queries, store, valid rows, bin maxima, block ids)
+    at B=1024, 32-row blocks, Dp=768: 64 random distinct blocks of the 1M
+    table, 50 of a 65,536-row chunk, and the 64 bins K1 picks by cosine for
+    1,024 clustered queries over 1,000,000 clustered rows."""
+    def random_case(st, v, k):
+        q = quantize_u8(torch.rand((1024, 768), generator=gen, device=dev) * 2 - 1, -0.6, 0.7, 768)
+        ids = torch.topk(torch.rand((1024, st.data.shape[0] // 32), generator=gen, device=dev), k, dim=1).indices
+        bin_s = torch.sort(torch.rand((1024, k), generator=gen, device=dev), dim=1, descending=True).values
+        return q, st, v, bin_s, ids
+
+    chunk = store._replace(data=store.data[:65_536], sums=store.sums[:65_536], mags=store.mags[:65_536])
+    cases = {"resident (random blocks)": random_case(store, valid, 64),
+             "streamed chunk": random_case(chunk, valid[:65_536], 50)}
+    xc, qc = clustered(1_000_000, 1024, 768, gen, dev)
+    cstore, cq = quantize_u8(xc, -0.1, 0.1, 768), quantize_u8(qc, -0.1, 0.1, 768)
+    del xc
+    cvalid = torch.ones(1_000_000, dtype=torch.bool, device=dev)
+    bin_s, ids = torch.topk(u8_scan.u8_bin_max_from_store("cosine", 32, cq, cstore, cvalid, 768), 64, dim=1)
+    cases["clustered (K1's bins)"] = (cq, cstore, cvalid, bin_s, ids)
+    return cases
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("FAIL: the variants run on a CUDA card")
@@ -162,7 +204,7 @@ def main() -> None:
     card = card_line()
     gen = torch.Generator(device=dev).manual_seed(0)
     kernels = {VARIANTS[name][0] for name in names}
-    if kernels & {K1, K2}:
+    if kernels & {K1, K2, BD}:
         x = torch.rand((1_048_576, 768), generator=gen, device=dev) * 2 - 1
         store = quantize_u8(x, -0.6, 0.7, 768)
         sub = quantize_subbyte(x[:65_536], 2, 768)
@@ -175,6 +217,8 @@ def main() -> None:
         merges = {}
         quaternary_scan_merges(xc, qc, 200, lambda i, *m: merges.update({i: m}) if i in (0, 15) else None)
         del xc, qc
+    if BD in kernels:  # stage 4's inputs: random blocks of the 1M table, a chunk's, K1's bins for clustered queries
+        stage4 = block_dot_inputs(store, valid, gen, dev)
     with tempfile.TemporaryDirectory() as tmp, concurrent.futures.ThreadPoolExecutor(len(names)) as ex:
         for name, lib, log in ex.map(lambda n: build(n, Path(tmp)), names):
             kernel = VARIANTS[name][0]
@@ -196,6 +240,16 @@ def main() -> None:
                         same = torch.equal(got.view(torch.int32), want.view(torch.int32))
                         ms = [device_ms(run, 20) for _ in range(2)]
                         print(f"  {where} merge: values bit for bit {same}, {ms[0]:.4f}/{ms[1]:.4f} ms", flush=True)
+                    continue
+                if kernel == BD:
+                    for where, (q, st, v, bin_s, ids) in stage4.items():
+                        run = lambda: u8_block_dot.u8_block_dot("cosine", 768, 32, q, st, v, bin_s, ids)  # noqa: E731
+                        want = u8_block_dot.block_scores_plain("cosine", 768, 32, q, st, v, bin_s, ids)
+                        same = torch.equal(run().view(torch.int32), want.view(torch.int32))
+                        ms = [device_ms(run, 20) for _ in range(2)]
+                        sort = device_ms(lambda: u8_block_dot.invert(ids), 20)
+                        print(f"  {where}: scores bit for bit {same}, {ms[0]:.4f}/{ms[1]:.4f} ms (the sort alone "
+                              f"{sort:.4f})", flush=True)
                     continue
                 for b in (1024, 128):
                     if kernel == K1:

@@ -74,15 +74,19 @@ def bound(ops: float, nbytes: float, f32_ops: float = 0.0, dp4a_ops: float = 0.0
 
 
 def block_dot_bytes(block_ids: torch.Tensor, group: int, dp: int) -> tuple[int, int]:
-    """The bytes stage 4's exact dots (``kernels/u8_block_dot.py``) must
-    move for (B, K) ``block_ids`` of ``group`` rows of ``dp`` bytes: each
-    distinct block read once, the query codes and the ids read, the
-    (B, K·group) int32 dots written. Then the same with each query reading
-    its own blocks, what a design without reuse across queries reads."""
+    """The bytes stage 4 (``kernels/u8_block_dot.py``: the int8 dots, the
+    dequantisation, the metric and the mask in one kernel) must move for
+    (B, K) ``block_ids`` of ``group`` rows of ``dp`` bytes: each distinct
+    block read once, its rows' codes with their int32 sums, f32 magnitudes
+    and valid bytes; the query codes with their sums and magnitudes; each
+    slot's int64 id and f32 bin maximum (its live flag); the (B, K·group)
+    f32 scores written. Then the same with each query reading its own
+    blocks, what a design without reuse across queries reads."""
     b, k = block_ids.shape
-    fixed = b * dp + 8 * b * k + 4 * b * k * group
+    fixed = b * (dp + 8) + 12 * b * k + 4 * b * k * group
+    block = group * (dp + 9)
     distinct = int(torch.unique(block_ids).numel())
-    return distinct * group * dp + fixed, b * k * group * dp + fixed
+    return distinct * block + fixed, b * k * block + fixed
 
 
 def clustered(n: int, nq: int, d: int, gen: torch.Generator, dev, *more: int):

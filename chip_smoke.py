@@ -10,8 +10,8 @@ Run from the repository root on a machine with one CUDA card:
 
 Phases: 0 environment; 1 build the kernels (u8_bin_max, K1;
 subbyte_code_scores, K2; group_topk, the sub-byte scan's per-chunk top-k;
-u8_block_dot, the u8 scan's stage 4) from the checkout's sources, in
-parallel; 2 K1
+u8_block_dot, the u8 scan's stage 4; u8_row_dot, the graph beam's
+candidate scoring) from the checkout's sources, in parallel; 2 K1
 against its plain PyTorch version at the u8 path's shapes and the tiles'
 edges and at Dp=4,096, by cosine, dot and euclidean, bins bit for bit,
 timed beside its bound and torch._int_mm (cosine at B=1024 and 128,
@@ -24,7 +24,17 @@ one row, timed beside its bound and the plain version (the gathered copy,
 its f32 cast, the batched product and the rescore), then at small ragged
 shapes, with all 1,024 queries choosing the same 64 blocks and on the
 bins K1 picks for clustered queries (timed too); expand_bins over a whole
-batch equal to its slices; 3 the u8
+batch equal to its slices; 2c u8_row_dot (the graph beam's candidate
+scoring: rows read by id, the dots, the dequantisation, the metric and the
+live mask in one kernel) against its plain version, f32 scores bit for
+bit by cosine, dot and euclidean, at a level-0 wave of b1024 at ef 256
+(K 256 over 1M rows, Dp 768; half, all, none of the candidates live and
+no mask), an upper level's (K 128), Dp 1,024, all queries on the same 256
+rows and the host-codes beam's wave on a chunk store of 3,000 rows, each
+timed beside its bound (each distinct live row read once) and the plain
+version (the gathered copy, its f32 cast, the batched product, the rescore
+and the mask), and a launch with an id past the table stopping with a CUDA
+error in a process of its own; 3 the u8
 path at 1M x 768: a DenseIndexHandle filled as the reference's bench fills
 it (983,616 rows in one call: the graph's bulk build), one search, then 16
 insertion waves of 1,024 rows, searched through DenseIndexHandle.search
@@ -33,7 +43,8 @@ u8_block_dot's launch counts, then one batch of 12,288 queries, whose bin table 
 limit, through the approx select mode (K1 per 65,536-row chunk), against
 the oracle and the bins mode on its thirds; 4 u8 search semantics, and the graph routes with the serving limits
 below the rows (unfiltered and 50% filter by the graph, 5% filter by the
-scan, a deleted id never back); 5 K2 and its query unpack against their
+scan, a deleted id never back; u8_row_dot launched by the graph searches
+and by none of the scans); 5 K2 and its query unpack against their
 plain versions, bit for bit, timed likewise, and K2's fused entry (the
 score epilogue, the row mask and the group maxima in the kernel) against
 its plain version by cosine and dot under two masks, scores bit for bit,
@@ -85,7 +96,11 @@ dense snapshot rewritten without its graph and reloaded scan-only, served
 above the limit by the scan with the scan's answers; 18 the HNSW graph of
 phase 3: HNSWIndex.search at ef 128, 256 and 512 (b1024, recall@10
 gated at 0.99 and 0.995 for ef 128 and 256), 8 single queries, a profile,
-the quaternary graph at ef 256, and a quaternary exact-path bulk build
+one b1024 search at ef 256 with u8_row_dot and one with scores_gathered's
+plain version on the card (ids and scores equal; its waves, the share of
+live candidates, the bytes and bound a batch, and the kernel's device time
+a batch from a profile), the quaternary graph at ef 256, and a quaternary
+exact-path bulk build
 (K2 through the chunked scan); 19 beyond the device budget (the phase-3
 and phase-6 handles freed first): a u8 HNSWIndex with host raw rows over
 the same 1M rows (the reference bench's beyond_hbm build), its resident
@@ -131,7 +146,9 @@ oracle's on untied slots); and the dry run's served path: a collection
 with ``config.shards`` 4 written over REST (16,384 rows), filtered,
 streamed a delete, gRPC equal to REST, restarted from its sharded
 snapshot with identical answers. K1 and K2 launch counts are read around
-each path. Any failure exits non-zero. The last line is one JSON
+each path; u8_row_dot's around the graph searches of phases 4, 18, 19 (the
+host-codes graph) and 21a (the sharded graph route), and it must launch
+in none of phase 3's, 4's and 11's scans. Any failure exits non-zero. The last line is one JSON
 object naming the device.
 """
 
@@ -146,6 +163,7 @@ import os
 import socket
 import statistics
 import subprocess
+import sys
 import tempfile
 import threading
 import time
@@ -165,7 +183,7 @@ try:
     from cosdata_tpu_torch.indexes.inverted import InvertedIndex
     from cosdata_tpu_torch.indexes.tf_idf import TFIDFIndex
     from cosdata_tpu_torch.ops import flat_scan, sparse_kernels
-    from cosdata_tpu_torch.ops.kernels import group_topk, subbyte_scan, u8_block_dot, u8_scan
+    from cosdata_tpu_torch.ops.kernels import group_topk, subbyte_scan, u8_block_dot, u8_row_dot, u8_scan
     from cosdata_tpu_torch.ops.quantize import quantize_subbyte, quantize_u8
     from cosdata_tpu_torch.ops.topk import NEG_INF
     from cosdata_tpu_torch.parallel.sharded import ShardedFlatIndex, make_mesh
@@ -173,7 +191,7 @@ try:
     from cosdata_tpu_torch.text import processing as text_processing
     from cosdata_tpu_torch.text.processing import process_text_query
     from cosdata_tpu_torch.tools.measure import (block_dot_bytes, bound, card_line, clustered, cuda_ms, device_ms,
-                                                 group_topk_bytes, quaternary_scan_merges)
+                                                 group_topk_bytes, quaternary_scan_merges, row_dot_bytes)
     from cosdata_tpu_torch.tools.profile_dense import device_us
     from cosdata_tpu_torch.tools.text_check import UNICODE_CORPUS, differences, pipeline
     from cosdata_tpu_torch.tools.text_check import bm25_corpus as text_corpus
@@ -512,6 +530,142 @@ def block_dot_check(gen, dev, card: str) -> tuple[float, dict]:
     return max(max_err, e), timed
 
 
+#: the graph beam's checked shapes: (what, B, table rows, candidates a
+#: query, Dp, every query on the same rows). A level-0 wave at ef 256
+#: (expand 4 x m0 64) over 1M rows, an upper level's (expand 4 x m 32) over
+#: its ~100,000 rows, the level-0 wave at Dp 1,024, all 1,024 queries on the
+#: same 256 rows, and the host-codes beam's wave (b64, expand 8 x m0 64) on
+#: a chunk store of 3,000 uploaded rows; each under a random half of its
+#: entries live, and the level-0 wave also with all and none live
+ROW_DOT_SHAPES = [("level-0 wave", 1024, 1_048_576, 256, 768, False), ("upper level", 1024, 100_000, 128, 768, False),
+                  ("level-0 wave Dp 1024", 1024, 1_048_576, 256, 1024, False),
+                  ("shared rows", 1024, 1_048_576, 256, 768, True), ("host-codes chunk", 64, 3_000, 512, 768, False)]
+#: the metric each shape is timed by: euclidean at Dp 1,024 (the L2 cell's
+#: width), cosine elsewhere (every shape is checked by all three)
+ROW_DOT_TIMED_METRIC = {"level-0 wave Dp 1024": "euclidean"}
+
+
+def row_dot_inputs(gen, dev, b: int, rows: int, k: int, dp: int, shared: bool):
+    """A quantized store of ``rows`` random rows (codes saturate at both
+    ends of the int8 range), b quantized queries, (B, K) random ids (the same
+    K for every query where ``shared``), every fifth query's every ninth id
+    -1, every query's last id the last row, which, like query 0, is -128
+    only (the largest sum)."""
+    d_true = dp - 28
+    store = quantize_u8(torch.rand((rows, dp), generator=gen, device=dev) * 2 - 1, -0.6, 0.7, d_true)
+    q = quantize_u8(torch.rand((b, dp), generator=gen, device=dev) * 2 - 1, -0.6, 0.7, d_true)
+    store.data[-1] = -128
+    q.data[0] = -128
+    if shared:
+        ids = torch.randperm(rows, generator=gen, device=dev)[:k].repeat(b, 1)
+    else:
+        ids = torch.randint(0, rows, (b, k), generator=gen, device=dev)
+    ids[:, -1] = rows - 1
+    ids[::5, ::9] = -1
+    return q, store, ids.contiguous()
+
+
+def row_dot_against_plain(metric: str, q, store, ids, live, where: str) -> float:
+    """u8_row_dot against its plain version: f32 scores bit for bit.
+    Returns the max abs error (0); fails otherwise."""
+    dp = q.data.shape[1]
+    got = u8_row_dot.u8_row_dot(metric, dp, q, store, ids, live)
+    want = u8_row_dot.row_scores_plain(metric, dp, q, store, ids, live)
+    torch.cuda.synchronize()
+    if got.shape != want.shape or got.dtype != torch.float32:
+        fail(f"u8_row_dot gave {got.dtype} {tuple(got.shape)}, want float32 {tuple(want.shape)} at {where}")
+    e = float((got.double() - want.double()).abs().max()) if got.numel() else 0.0
+    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+        fail(f"u8_row_dot's {metric} scores differ from its plain version at {where}: max abs {e}")
+    return e
+
+
+def row_dot_timing(where: str, metric: str, q, store, ids, live, card: str) -> dict:
+    """The kernel timed beside its plain version (the gathered copy, its
+    f32 cast, the batched product, the rescore and the mask) and its bound:
+    the bytes of row_dot_bytes (each distinct live row once) and 2·Dp int8
+    __dp4a operations a live candidate; beside it the bound where each live
+    candidate reads its own row, as the kernel does."""
+    dp = q.data.shape[1]
+    nbytes, per_candidate = row_dot_bytes(ids, live, dp)
+    n_live = ids.numel() if live is None else int(live.sum())
+    t = kernel_timing(f"{where} {metric}", lambda: u8_row_dot.u8_row_dot(metric, dp, q, store, ids, live),
+                      lambda: u8_row_dot.row_scores_plain(metric, dp, q, store, ids, live), None, 3, 0.0, nbytes,
+                      card, dp4a_ops=2.0 * n_live * dp)
+    t["live_share"] = n_live / ids.numel()
+    t["bytes"] = nbytes
+    t["bound_per_candidate_ms"] = bound(0.0, per_candidate, dp4a_ops=2.0 * n_live * dp)[0]
+    print(f"    bytes: distinct live rows {nbytes}, each live candidate its own {per_candidate} (bound "
+          f"{t['bound_per_candidate_ms']:.4f} ms); live {t['live_share']:.1%} [{card}]", flush=True)
+    return t
+
+
+def row_dot_check(dev, card: str) -> tuple[float, dict]:
+    """Phase 2c: u8_row_dot against its plain version, f32 scores bit for
+    bit by cosine, dot and euclidean, at ROW_DOT_SHAPES under a random half
+    of the entries live (the level-0 wave also all and none live, and with
+    no mask), each shape timed beside its bound and the plain version.
+    Its inputs come from a generator of their own, so that the corpus of
+    phase 3 on is the draw it was before the phase. Returns (max_abs_err,
+    timings by shape)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    max_err, timed = 0.0, {}
+    for what, b, rows, k, dp, shared in ROW_DOT_SHAPES:
+        q, store, ids = row_dot_inputs(gen, dev, b, rows, k, dp, shared)
+        half = torch.rand((b, k), generator=gen, device=dev) < 0.5
+        lives = {"half live": half}
+        if what == "level-0 wave":
+            lives.update({"all live": torch.ones_like(half), "none live": torch.zeros_like(half), "no mask": None})
+        for name, live in lives.items():
+            where = f"{what}: B={b} rows={rows} K={k} Dp={dp}, {name}"
+            errs = []
+            for metric in BLOCK_DOT_METRICS:
+                e = row_dot_against_plain(metric, q, store, ids, live, f"{where} {metric}")
+                errs.append(f"{metric}:{e:.3g}")
+                max_err = max(max_err, e)
+            print(f"  {where} (bit for bit) max_abs_err {' '.join(errs)}", flush=True)
+            if name in ("half live", "all live"):
+                key = what if name == "half live" else f"{what} all live"
+                timed[key] = row_dot_timing(where, ROW_DOT_TIMED_METRIC.get(what, "cosine"), q, store, ids, live,
+                                            card)
+        del q, store, ids, half, lives
+        torch.cuda.empty_cache()
+    return max_err, timed
+
+
+#: a process of its own (a trap ends its CUDA context): one u8_row_dot
+#: launch with a live id at the table's row count, which must stop with a
+#: CUDA error as the plain version's gather does
+ROW_DOT_TRAP_CHILD = """
+import os, torch
+from cosdata_tpu_torch.ops.kernels import u8_row_dot
+from cosdata_tpu_torch.ops.quantize import quantize_u8
+gen = torch.Generator(device="cuda").manual_seed(3)
+store = quantize_u8(torch.rand((300, 128), generator=gen, device="cuda") * 2 - 1, -0.6, 0.7, 100)
+q = quantize_u8(torch.rand((4, 128), generator=gen, device="cuda") * 2 - 1, -0.6, 0.7, 100)
+ids = torch.randint(0, 300, (4, 37), generator=gen, device="cuda")
+ids[2, 5] = 300
+try:
+    u8_row_dot.u8_row_dot("cosine", 128, q, store, ids)
+    torch.cuda.synchronize()
+except RuntimeError as err:
+    print("stopped:", str(err).strip().splitlines()[0], flush=True)
+    os._exit(0)
+print("no error", flush=True)
+os._exit(1)
+"""
+
+
+def row_dot_traps_outside(card: str) -> None:
+    """An id past the table stops the launch loudly: run ROW_DOT_TRAP_CHILD
+    in a process of its own; fails unless its launch raised a CUDA error."""
+    res = subprocess.run([sys.executable, "-c", ROW_DOT_TRAP_CHILD], cwd=os.path.dirname(os.path.abspath(__file__)),
+                         capture_output=True, text=True, timeout=300)
+    print(f"  an id past the table (live): {res.stdout.strip() or res.stderr.strip()[-300:]} [{card}]", flush=True)
+    if res.returncode != 0 or not res.stdout.startswith("stopped:"):
+        fail(f"u8_row_dot did not stop on an id past the table (exit {res.returncode}): {res.stderr[-500:]}")
+
+
 def check_results(name: str, ids, truth: torch.Tensor, t: float, card: str, gate: bool) -> None:
     b = truth.shape[0]
     if ids.shape != (b, 10) or (ids < 0).any():
@@ -535,6 +689,24 @@ def reset_counts() -> None:
     subbyte_scan.subbyte_code_scores.launches = 0
     subbyte_scan.unpack_query_codes.launches = 0
     group_topk.merge_group_topk.launches = 0
+    u8_row_dot.u8_row_dot.launches = 0
+
+
+def scan_only(where: str) -> None:
+    """Fails where u8_row_dot launched since the counts were reset: a route
+    that scans scores no graph candidates."""
+    if u8_row_dot.u8_row_dot.launches:
+        fail(f"{where} took the scan but launched u8_row_dot {u8_row_dot.u8_row_dot.launches} times")
+
+
+def graph_row_dots(where: str, before: int) -> int:
+    """u8_row_dot's launches since its count read ``before``: a u8 graph
+    search scores its candidates by one launch a wave; fails where it
+    launched none."""
+    n = u8_row_dot.u8_row_dot.launches - before
+    if n <= 0:
+        fail(f"{where}: the u8 graph never launched u8_row_dot")
+    return n
 
 
 def k1_launches() -> int:
@@ -604,9 +776,9 @@ def approx_check(name: str, search, q_big, truth_big: torch.Tensor, capacity: in
     return launches
 
 
-def main_path(x, q, q_big, truth, dev, card: str) -> tuple[int, DenseIndexHandle]:
-    """Phases 3 and 4; returns K1's launches during the u8 path and the
-    handle, which phases 11 and 18 serve."""
+def main_path(x, q, q_big, truth, dev, card: str) -> tuple[int, int, DenseIndexHandle]:
+    """Phases 3 and 4; returns K1's launches during the u8 path, u8_row_dot's
+    in phase 4's graph routes and the handle, which phases 11 and 18 serve."""
     t0 = time.perf_counter()
     handle = DenseIndexHandle(DIM, dev)  # quantization "auto"
     graph_ingest(handle, x, q, card, "u8 handle")
@@ -622,6 +794,7 @@ def main_path(x, q, q_big, truth, dev, card: str) -> tuple[int, DenseIndexHandle
     t_f1, (f1_ids, _) = timed_search(lambda: flat.search(q[:1024], 10, rerank=True))
     t_f4, (f4_ids, _) = timed_search(lambda: flat.search(q, 10, rerank=True))
     launches = k1_launches()
+    scan_only("phase 3's scans")
     for name, ids, t, b in (
         ("DenseIndexHandle.search b1024", h_ids, t_h, 1024),
         ("FlatIndex.search(rerank) b1024", f1_ids, t_f1, 1024),
@@ -652,14 +825,15 @@ def main_path(x, q, q_big, truth, dev, card: str) -> tuple[int, DenseIndexHandle
     if (ids < 0).any() or not mask[rows].all():
         fail("masked search returned rows outside the mask")
     print("self-query, delete, mask: ok")
-    graph_routes(handle, x, q, truth, card)
-    return launches, handle
+    row_dots = graph_routes(handle, x, q, truth, card)
+    return launches, row_dots, handle
 
 
-def graph_routes(handle: DenseIndexHandle, x, q, truth, card: str) -> None:
+def graph_routes(handle: DenseIndexHandle, x, q, truth, card: str) -> int:
     """Phase 4's graph routes, with the serving limits below the rows: an
     unfiltered search and a 50% filter take the graph, a 5% filter the
-    scan, and a deleted id never comes back from the graph."""
+    scan, and a deleted id never comes back from the graph. Returns
+    u8_row_dot's launches in the two graph searches."""
     n = handle.index.n
     limits = handle.flat_serve_threshold, handle.graph_filter_min
     handle.flat_serve_threshold = handle.graph_filter_min = n - 1
@@ -674,24 +848,28 @@ def graph_routes(handle: DenseIndexHandle, x, q, truth, card: str) -> None:
     masked_truth = keep[exact_top10(q[:1024], x[keep])]
     r_half = recall10(h_ids, masked_truth)
     in_half = bool((h_ids >= 0).all() and half[h_ids].all())
+    row_dots = graph_row_dots("phase 4's graph routes", 0)
     five = np.zeros(n, bool)
     five[::20] = True
     reset_counts()
     f_ids, _ = handle.search(q[:64], 10, row_mask=five)
     k1_five = k1_launches()
+    scan_only("phase 4's 5% filter")
     in_five = bool((f_ids >= 0).all() and five[f_ids].all())
     d_ids, _ = handle.search(x[[7, 8]], 10)
     handle.flat_serve_threshold, handle.graph_filter_min = limits
     print(f"graph routes (limits {n - 1} < {n} rows): unfiltered b1024 recall@10 {r:.4f} in {t * 1e3:.1f} ms "
           f"(K1 launches {k1_graph}); 50% filter recall@10 {r_half:.4f} against the masked oracle, ids in the "
           f"mask {in_half}, {t_half * 1e3:.1f} ms; 5% filter: the scan (K1 launches {k1_five}), ids in the mask "
-          f"{in_five}; deleted 7 absent {7 not in d_ids} [{card}]", flush=True)
+          f"{in_five}; deleted 7 absent {7 not in d_ids}; u8_row_dot launches in the two graph searches {row_dots} "
+          f"[{card}]", flush=True)
     if r < MIN_RECALL or r_half < MIN_RECALL:
         fail(f"graph routes: recall@10 {r:.4f} / {r_half:.4f} < {MIN_RECALL}")
     if not (in_half and in_five) or k1_graph or not k1_five:
         fail("graph routes: a filter leaked, or a route took the wrong engine")
     if 7 in d_ids or d_ids[1, 0] != 8:
         fail(f"graph routes: deleted 7 came back or 8 did not find itself: {d_ids[:, :3].tolist()}")
+    return row_dots
 
 
 def fused_against_plain(q, store, dp: int, want_dots, q_codes, gen, where: str) -> tuple[float, float]:
@@ -1280,6 +1458,7 @@ def served_phase(ctx: AppContext, client: RestClient, u8_handle, q4_handle, q, t
     batch_search(client, "served_u8", qr[:QUERY_ROWS], WORKERS)  # first search of the collection
     ids, _, dt, lat = batch_search(client, "served_u8", qr, WORKERS)
     k1 = k1_launches()
+    scan_only("phase 11's served u8 scan")
     served_line(f"served u8 {N} rows, {WORKERS} workers", ids, truth.cpu().numpy(), dt, lat, card)
     print(f"u8_bin_max launches in phase 11: {k1}", flush=True)
     reset_counts()
@@ -1722,9 +1901,10 @@ class BruteBM25:
         return hits / max(want, 1)
 
 
-def profile_top(fn, card: str, top: int = 5) -> None:
+def profile_top(fn, card: str, top: int = 5) -> dict:
     """One torch.profiler pass over ``fn``: its wall time, the device time
-    of its kernels, the busy share and the ``top`` kernels by device time."""
+    of its kernels, the busy share and the ``top`` kernels by device time.
+    Returns each kernel's device ms and launches by name."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1739,6 +1919,7 @@ def profile_top(fn, card: str, top: int = 5) -> None:
           f"[{card}]", flush=True)
     for e in sorted(kernels, key=device_us, reverse=True)[:top]:
         print(f"    {device_us(e) / 1e3:8.3f} ms  x{e.count:<4d} {e.key[:100]}", flush=True)
+    return {e.key: (device_us(e) / 1e3, e.count) for e in kernels}
 
 
 def text_library_check(docs: list[str], queries: list[str], card: str) -> None:
@@ -2047,14 +2228,69 @@ def dense_graph_ids(dense: DenseIndexHandle, qd: np.ndarray, limit: int) -> np.n
     return ids
 
 
-def graph_phase(u8_handle: DenseIndexHandle, q4_handle: DenseIndexHandle, x, q, truth, dev, card: str) -> int:
+def graph_against_plain(idx, qb, card: str) -> dict:
+    """One b1024 search at ef 256 on the u8 graph with the kernel (its
+    launches counted: one a wave), then the same search with
+    scores_gathered's u8 branch taking the plain version on the card
+    (recording each wave's candidates, live ones and row_dot_bytes):
+    ids and scores must be equal. Then one profiled search, for the
+    kernel's device time a batch. Returns the waves, the live share, the
+    bytes and bound a batch, and the kernel's device ms a batch."""
+    dp = idx.store.dim_pad
+    reset_counts()
+    ids_k, sc_k = idx.search(qb, 10, ef=256)
+    waves = u8_row_dot.u8_row_dot.launches
+    seen = {"waves": 0, "entries": 0, "live": 0, "bytes": 0, "per_candidate": 0}
+
+    def plain(metric, d_pad, q, store, ids, live=None):
+        seen["waves"] += 1
+        seen["entries"] += ids.numel()
+        seen["live"] += ids.numel() if live is None else int(live.sum())
+        nbytes, per_candidate = row_dot_bytes(ids, live, dp)
+        seen["bytes"] += nbytes
+        seen["per_candidate"] += per_candidate
+        return u8_row_dot.row_scores_plain(metric, d_pad, q, store, ids, live)
+
+    kernel = u8_row_dot.u8_row_dot
+    u8_row_dot.u8_row_dot = plain
+    try:
+        ids_p, sc_p = idx.search(qb, 10, ef=256)
+    finally:
+        u8_row_dot.u8_row_dot = kernel
+    same = bool(np.array_equal(ids_k, ids_p) and np.array_equal(np.asarray(sc_k).view(np.int32),
+                                                                 np.asarray(sc_p).view(np.int32)))
+    share = seen["live"] / max(seen["entries"], 1)
+    bound_ms, bound_by = bound(0.0, seen["bytes"], dp4a_ops=2.0 * seen["live"] * dp)
+    bound_own_ms = bound(0.0, seen["per_candidate"], dp4a_ops=2.0 * seen["live"] * dp)[0]
+    kernels = profile_top(lambda: idx.search(qb, 10, ef=256), card)
+    row_ms = sum(ms for key, (ms, _) in kernels.items() if "u8_row_dot_kernel" in key)
+    print(f"graph ef=256 b1024, the kernel against scores_gathered's plain version on the card: ids and scores "
+          f"equal {same}; u8_row_dot launches (waves) {waves} (plain path waves {seen['waves']}); candidates "
+          f"{seen['entries']}, live {seen['live']} ({share:.1%}); row_dot_bytes {seen['bytes']} a batch (each "
+          f"wave's distinct live rows once), bound {bound_ms:.4f} ms ({bound_by}); each live candidate its own row "
+          f"{seen['per_candidate']}, bound {bound_own_ms:.4f} ms; the kernel's device time {row_ms:.4f} ms a batch "
+          f"(roofline share {bound_ms / row_ms if row_ms else 0:.1%}) [{card}]", flush=True)
+    if not same:
+        fail("phase 18: the graph's answers with u8_row_dot differ from the plain version's")
+    if waves == 0 or waves != seen["waves"]:
+        fail(f"phase 18: u8_row_dot launched {waves} times, the plain path scored {seen['waves']} waves")
+    return {"launches_per_batch": waves, "live_share": share, "bytes_per_batch": seen["bytes"],
+            "bound_ms_per_batch": bound_ms, "bound_per_candidate_ms_per_batch": bound_own_ms,
+            "device_ms_per_batch": row_ms}
+
+
+def graph_phase(u8_handle: DenseIndexHandle, q4_handle: DenseIndexHandle, x, q, truth, dev,
+                card: str) -> tuple[int, int, dict]:
     """Phase 18: HNSWIndex.search on phase 3's 1M graph at ef 128, 256 and
     512 (b1024, recall@10 against the exact f32 oracle, median of 5), 8
-    single queries, a profile, the quaternary graph at ef 256, and a
-    quaternary exact-path bulk build (K2 through the chunked scan);
-    returns K2's launches in that build."""
+    single queries, a profile, the kernel against the plain version
+    (graph_against_plain), the quaternary graph at ef 256, and a quaternary
+    exact-path bulk build (K2 through the chunked scan); returns K2's
+    launches in that build, u8_row_dot's in the u8 searches and
+    graph_against_plain's reading."""
     idx, qb = u8_handle.index, q[:1024]
     recall = {}
+    reset_counts()
     for ef in (128, 256, 512):
         t, (ids, _) = timed_search(lambda: idx.search(qb, 10, ef=ef))
         recall[ef] = recall10(ids, truth[:1024])
@@ -2068,6 +2304,9 @@ def graph_phase(u8_handle: DenseIndexHandle, q4_handle: DenseIndexHandle, x, q, 
     print(f"8 single queries at ef=128: median {statistics.median(lat) * 1e3:.1f} ms, max {max(lat) * 1e3:.1f} ms "
           f"[{card}]", flush=True)
     profile_top(lambda: idx.search(qb, 10, ef=128), card)
+    row_dots = graph_row_dots("phase 18", 0)
+    print(f"u8_row_dot launches in the u8 graph searches {row_dots} [{card}]", flush=True)
+    checked = graph_against_plain(idx, qb, card)
     t, (ids, _) = timed_search(lambda: q4_handle.index.search(qb, 10, ef=256), reps=1)
     # the 5 x k rerank shortlist of 2-bit scores bounds this recall (the
     # scan's 20 x k shortlist, printed beside it, does not)
@@ -2090,7 +2329,7 @@ def graph_phase(u8_handle: DenseIndexHandle, q4_handle: DenseIndexHandle, x, q, 
         fail(f"graph recall@10 ef=128 {recall[128]:.4f} (gate {MIN_RECALL}), ef=256 {recall[256]:.4f} (gate 0.995)")
     if k2 == 0:
         fail("the quaternary exact bulk build never launched K2")
-    return k2
+    return k2, row_dots, checked
 
 
 def untied_equal(ids, want_ids, want_scores) -> tuple[bool, float]:
@@ -2198,8 +2437,10 @@ def spill_u8_phase(x, q, truth, dev, card: str) -> dict:
         out[b] = {"ms": t * 1e3, "ids": ids, "bytes": nbytes, "per_batch": per_batch}
     reset_counts()
     out["split"] = profile_split("streamed u8 b1024", lambda: idx.search_brute(qb, 10), card)
+    out["row_dot"] = 0
     for ef in (128, 256):
-        rec = hostcodes_graph(idx, qs, out[64], ef, f"{N} rows", card)
+        rec, row_dots = hostcodes_graph(idx, qs, out[64], ef, f"{N} rows", card)
+        out["row_dot"] += row_dots
         resident = recall_against(resident_graph[ef], out[64]["ids"])
         print(f"  the same graph resident (upper levels, before the spill) ef={ef}: recall@10 vs the streamed "
               f"exact scan {resident:.4f} [{card}]", flush=True)
@@ -2246,10 +2487,12 @@ def recall_against(ids, want_ids) -> float:
                                                                     np.asarray(want_ids).tolist())]))
 
 
-def hostcodes_graph(idx, qs, scan: dict, ef: int, what: str, card: str) -> float:
+def hostcodes_graph(idx, qs, scan: dict, ef: int, what: str, card: str) -> tuple[float, int]:
     """The host-codes graph of a kept-graph spill at ``ef``, b64: recall@10
     against the streamed exact scan's ids (``scan``), time beside the
-    scan's, waves and bytes uploaded. Returns the recall."""
+    scan's, waves and bytes uploaded. Returns the recall and u8_row_dot's
+    launches (one a wave and one for the first beam, every search)."""
+    before = u8_row_dot.u8_row_dot.launches
     idx.search(qs, 10, ef=ef)  # warm-up
     t_g, (g_ids, _) = timed_search(lambda: idx.search(qs, 10, ef=ef), reps=3)
     st = idx.last_hostcodes_stats
@@ -2259,19 +2502,19 @@ def hostcodes_graph(idx, qs, scan: dict, ef: int, what: str, card: str) -> float
           f"{t_g * 1e3:.1f} ms = {graph_qps:.1f} q/s; {st['waves']} waves, {st['rows']} rows = {st['bytes']} B "
           f"uploaded, {st['bytes'] / max(st['waves'], 1):.0f} B per wave; streamed scan {scan_qps:.1f} q/s; winner "
           f"{'graph' if graph_qps > scan_qps else 'scan'} [{card}]", flush=True)
-    return g_rec
+    return g_rec, graph_row_dots(f"the host-codes graph {what} ef={ef}", before)
 
 
 #: the reference bench's beyond_hbm rows (bench.py:815, min(n, 262,144))
 N_BEYOND = 262_144
 
 
-def beyond_hbm_section(x, q, dev, card: str) -> int:
+def beyond_hbm_section(x, q, dev, card: str) -> tuple[int, int]:
     """Phase 19a's second half, the reference bench's beyond_hbm section
     (bench.py:806-851) at its 262,144 rows: a u8 index with host raw rows
     (seed 5), force_spill(keep_graph=True), the streamed exact scan b64 as
     the oracle, the host-codes graph at ef 128 gated at recall@10 0.99.
-    Returns K1's launches."""
+    Returns K1's launches and u8_row_dot's."""
     idx = HNSWIndex(DIM, dev, kind="u8", range_=tune_dense_range(x[:1000].cpu().numpy()), seed=5,
                     keep_raw="host", initial_capacity=N_BEYOND)
     t0 = time.perf_counter()
@@ -2287,12 +2530,12 @@ def beyond_hbm_section(x, q, dev, card: str) -> int:
     launches = k1_launches()
     print(f"beyond_hbm at {N_BEYOND} rows: build {t_build:.1f} s; streamed exact scan b64 {t * 1e3:.1f} ms = "
           f"{64 / t:.1f} q/s, K1 launches {per_batch} per batch [{card}]", flush=True)
-    rec = hostcodes_graph(idx, qs, {"ids": ids, "ms": t * 1e3}, 128, f"{N_BEYOND} rows", card)
+    rec, row_dots = hostcodes_graph(idx, qs, {"ids": ids, "ms": t * 1e3}, 128, f"{N_BEYOND} rows", card)
     if rec < MIN_RECALL:
         fail(f"host-codes graph recall {rec:.4f} < {MIN_RECALL} at {N_BEYOND} rows")
     del idx
     torch.cuda.empty_cache()
-    return launches
+    return launches, row_dots
 
 
 def spill_q4_phase(x, q, truth, dev, card: str) -> tuple[int, int, int, int]:
@@ -2761,11 +3004,12 @@ def sharded_u8_phase(x, q, truth, dev, card: str) -> dict:
     profile_top(lambda: handle.search(qb, 10), card)
 
     idx.flat_serve_threshold = min(sh.n for sh in idx.shards) - 1  # every shard takes its graph
-    before = k1_launches()
+    before, rd_before = k1_launches(), u8_row_dot.u8_row_dot.launches
     t, (ids, _) = timed_search(lambda: handle.search(qb, 10, ef=128), reps=3)
     check_results(f"sharded graph route ef=128 b1024 (limit {idx.flat_serve_threshold} per shard)", ids, tb, t,
                   card, True)
-    print(f"  u8_bin_max launches in the graph route {k1_launches() - before}", flush=True)
+    row_dots = graph_row_dots("21a's sharded graph route", rd_before)
+    print(f"  u8_bin_max launches in the graph route {k1_launches() - before}, u8_row_dot {row_dots}", flush=True)
     del idx.flat_serve_threshold
 
     want = exact_top10(qb, x[::2]) * 2
@@ -2794,7 +3038,7 @@ def sharded_u8_phase(x, q, truth, dev, card: str) -> dict:
     print(f"  deleted {victim} absent from its own query: {victim not in got} [{card}]", flush=True)
     if victim in got:
         fail(f"21a: the deleted row {victim} answered its own query")
-    return {"launches": k1_launches(), "per_batch": per_batch}
+    return {"launches": k1_launches(), "per_batch": per_batch, "row_dot": row_dots}
 
 
 def sharded_q4_phase(x, q, dev, card: str) -> dict:
@@ -2994,9 +3238,9 @@ def main() -> None:
     if missing:
         fail(f"packages the port needs are missing: {missing}")
 
-    phase("1 build u8_bin_max, subbyte_code_scores, group_topk and u8_block_dot")
+    phase("1 build u8_bin_max, subbyte_code_scores, group_topk, u8_block_dot and u8_row_dot")
     t0 = time.perf_counter()
-    libs = (u8_scan.LIBRARY, subbyte_scan.LIBRARY, group_topk.LIBRARY, u8_block_dot.LIBRARY)
+    libs = (u8_scan.LIBRARY, subbyte_scan.LIBRARY, group_topk.LIBRARY, u8_block_dot.LIBRARY, u8_row_dot.LIBRARY)
     with concurrent.futures.ThreadPoolExecutor(len(libs)) as ex:  # one nvcc per source, together
         logs = list(ex.map(lambda lib: lib.build(), libs))
     print(f"built {', '.join(lib.library.name for lib in libs)} in {time.perf_counter() - t0:.2f} s")
@@ -3022,18 +3266,29 @@ def main() -> None:
           f"product, rescore) {res['plain_ms']:.3f} ms, bound {res['bound_ms']:.4f} ms ({res['bound_by']}); "
           f"clustered bins back to back {clu['ms_back_to_back']:.4f} ms, bound {clu['bound_ms']:.4f} [{card}]")
 
+    phase("2c the graph beam's u8_row_dot against plain")
+    rd_err, rd_timed = row_dot_check(dev, card)
+    row_dot_traps_outside(card)
+    wave = rd_timed["level-0 wave"]
+    print(f"u8_row_dot vs plain: max_abs_err {rd_err:.3g} (f32 scores bit for bit); level-0 wave B=1024 K=256 "
+          f"Dp=768, half live: kernel {wave['ms']:.4f} ms (back to back {wave['ms_back_to_back']:.4f}), plain "
+          f"(gather, cast, product, rescore, mask) {wave['plain_ms']:.3f} ms, bound {wave['bound_ms']:.4f} ms "
+          f"({wave['bound_by']}) [{card}]")
+
     phase(f"3 main path at {N} x {DIM}")
     t0 = time.perf_counter()
     x, q, q_big = clustered(N, NQ, DIM, gen, dev, NQ_APPROX)
     truth = exact_top10(q, x)
     torch.cuda.synchronize()
     print(f"corpus + oracle in {time.perf_counter() - t0:.1f} s")
-    launches, u8_handle = main_path(x, q, q_big, truth, dev, card)
-    k1_per_batch, bd_per_batch = launches_per_batch([u8_scan.u8_bin_max, u8_block_dot.u8_block_dot],
-                                                    lambda: u8_handle.search(q[:1024], 10))
-    print(f"launches per b1024 batch: u8_bin_max {k1_per_batch}, u8_block_dot {bd_per_batch} [{card}]")
-    if bd_per_batch != 1 or k1_per_batch != 1:
-        fail(f"a resident b1024 scan launched K1 {k1_per_batch} and u8_block_dot {bd_per_batch} times, want 1 each")
+    launches, row_launches, u8_handle = main_path(x, q, q_big, truth, dev, card)
+    k1_per_batch, bd_per_batch, rd_scan = launches_per_batch(
+        [u8_scan.u8_bin_max, u8_block_dot.u8_block_dot, u8_row_dot.u8_row_dot], lambda: u8_handle.search(q[:1024], 10))
+    print(f"launches per b1024 batch: u8_bin_max {k1_per_batch}, u8_block_dot {bd_per_batch}, u8_row_dot {rd_scan} "
+          f"[{card}]")
+    if bd_per_batch != 1 or k1_per_batch != 1 or rd_scan:
+        fail(f"a resident b1024 scan launched K1 {k1_per_batch}, u8_block_dot {bd_per_batch} and u8_row_dot "
+             f"{rd_scan} times, want 1, 1 and 0")
     torch.cuda.empty_cache()
 
     phase("5 K2 against plain")
@@ -3121,13 +3376,17 @@ def main() -> None:
     launches += k1_bm25 + k1_bm_rest
 
     phase(f"18 HNSW graph at {N} x {DIM}")
-    k2_launches += graph_phase(u8_handle, q4_handle, x, q, truth, dev, card)
+    k2_graph, row_graph, rd_graph = graph_phase(u8_handle, q4_handle, x, q, truth, dev, card)
+    k2_launches += k2_graph
+    row_launches += row_graph
     del u8_handle, q4_handle, ctx  # phase 11's context still held both handles
     torch.cuda.empty_cache()
 
     phase(f"19 beyond the device budget at {N} x {DIM}")
     spilled = spill_u8_phase(x, q, truth, dev, card)
-    spilled["launches"] += beyond_hbm_section(x, q, dev, card)
+    k1_beyond, row_beyond = beyond_hbm_section(x, q, dev, card)
+    spilled["launches"] += k1_beyond
+    row_launches += spilled["row_dot"] + row_beyond
     k2_spill, unpack_spill, k2_streamed, unpack_streamed = spill_q4_phase(x, q, truth, dev, card)
     x_rest = np.round(x[:N_REST].cpu().numpy().astype(np.float64), 6)  # phase 9's rows
     with tempfile.TemporaryDirectory(prefix="cosdata_smoke_") as data_dir:
@@ -3146,6 +3405,7 @@ def main() -> None:
     phase(f"21a sharded u8 DenseIndexHandle at {N} x {DIM}, {SHARDS} shards")
     sharded = sharded_phase(x, q, truth, x_hy, q_rest, dev, card)
     launches += sharded["launches"]
+    row_launches += sharded["row_dot"]
     k2_launches += sharded["k2"]
     unpack_launches += sharded["unpack"]
     gt_launches += sharded["gt"]
@@ -3161,7 +3421,12 @@ def main() -> None:
     # u8_block_dot (the whole of stage 4, its inversion included) at B=1024,
     # 64 blocks of 32 rows, Dp=768, its other timed shapes and K1's bins for
     # clustered queries beside (library_ms null: no one PyTorch call computes
-    # it); its launches equal K1's at every read (k1_launches)
+    # it); its launches equal K1's at every read (k1_launches). u8_row_dot
+    # (the graph beam's scoring) at a level-0 wave of b1024 at ef 256 (B=1024,
+    # K=256, Dp=768, half the candidates live), its other shapes beside, its
+    # launches counted in the graph phases (4, 18, 19, 21a) and a b1024 ef 256
+    # search's reading (graph_against_plain) under "graph_ef256_b1024"
+    # (library_ms null: no one PyTorch call computes it)
     print(json.dumps({"kernels": [{
         "name": "u8_bin_max",
         "route": "cuda",
@@ -3190,6 +3455,18 @@ def main() -> None:
         "max_abs_err": bd_err,
         **bd_timed["resident"],
         **{key.replace(" ", "_"): bd_timed[key] for key in bd_timed if key != "resident"},
+    }, {
+        "name": "u8_row_dot",
+        "route": "cuda",
+        "source": "cosdata_tpu_torch/csrc/u8_row_dot.cu",
+        # no TPU kernel: XLA's gather of each query's candidate rows and grouped int8 einsum
+        "replaces": "cosdata_tpu/ops/storage.py:856",
+        "launches": row_launches,
+        "launches_per_batch": rd_graph["launches_per_batch"],
+        "max_abs_err": rd_err,
+        **rd_timed["level-0 wave"],
+        **{key.replace(" ", "_"): rd_timed[key] for key in rd_timed if key != "level-0 wave"},
+        "graph_ef256_b1024": rd_graph,
     }, {
         "name": "subbyte_code_scores",
         "route": "cuda",

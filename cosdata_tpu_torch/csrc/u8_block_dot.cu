@@ -5,7 +5,7 @@
 //   out[b, k * group + j] = score(q[b], row block_ids[b, k] * group + j)                 f32
 //
 // where score is dequant_dot, then cosine, dot or the negated euclidean
-// distance (storage.cos_or_dot), and NEG_INF for an invalid row or a bin
+// distance (distance.cos_or_dot), and NEG_INF for an invalid row or a bin
 // that sank (bin_s[b, k] <= NEG_INF / 2).
 //
 // Replaces no TPU kernel: on the TPU this step is XLA's gather of the

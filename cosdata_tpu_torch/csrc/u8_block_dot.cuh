@@ -23,12 +23,11 @@
 // (the launch refuses more), and int32 sums are the same in any order.
 //
 // The epilogue is flat_scan.expand_bins' plain arithmetic (kernels/
-// u8_block_dot.py:block_scores_plain) in its op order: distance.dequant_dot
-// in wrapping int32 and then f32, storage.cos_or_dot, then NEG_INF where
-// the row is invalid or the entry's bin sank. Every f32 operation is an
-// intrinsic rounded to nearest (__fmul_rn, __fadd_rn, __fdiv_rn,
-// __fsqrt_rn): nothing contracts into a fused multiply-add. Scores land at
-// out[flat * group + row], the (B, K * group) layout of the plain version.
+// u8_block_dot.py:block_scores_plain) in its op order: u8_epilogue.cuh's
+// score (distance.dequant_dot, then distance.cos_or_dot, every f32
+// operation rounded to nearest, none fused), then NEG_INF where the row is
+// invalid or the entry's bin sank. Scores land at out[flat * group + row],
+// the (B, K * group) layout of the plain version.
 //
 // The same source builds for the card and for the host: nvcc makes these
 // device functions of the kernel; a host compiler makes them plain
@@ -40,6 +39,8 @@
 #pragma once
 
 #include <cstdint>
+
+#include "u8_epilogue.cuh"
 
 #ifdef __CUDACC__
 #define U8_BLOCK_DOT_FN __device__ __forceinline__
@@ -63,10 +64,12 @@ constexpr int kRowBytes = kBoxes * kTileBytes;  // a stage's rows
 constexpr int kQueryBytes = kChunk * kStride;   // a stage's queries
 constexpr int kDpMultiple = kBox;               // a row is whole boxes
 constexpr int kDpMax = (1 << 17) - kDpMultiple; // 2^14 Dp < 2^31
-constexpr int kCosine = 0, kDot = 1, kEuclidean = 2;  // the metric codes of the launch
-constexpr float kNegInf = -3.0e38f;             // ops/topk.py NEG_INF
 constexpr float kSunk = -1.5e38f;               // NEG_INF / 2: a bin at or below it sank
-constexpr float kEps = 1e-30f;                  // ops/distance.py _EPS
+using u8_epilogue::Consts;
+using u8_epilogue::consts_of;
+using u8_epilogue::kCosine;
+using u8_epilogue::kEuclidean;
+using u8_epilogue::kNegInf;
 
 // The launch's inputs: the queries (codes, code sums, magnitudes and the
 // 0-d scale, offset and true width of their quantization), the table
@@ -118,11 +121,6 @@ struct EntryTerms {
   int32_t sum;     // the query's code sum and magnitude
   float mag;
   int32_t live;    // its bin did not sink
-};
-
-// The query's 0-d terms as dequant_dot combines them: a * a, a * b, (b * b) * dtrue.
-struct Consts {
-  float aa, ab, bbd;
 };
 
 // One bulk copy into a stage: bytes from src to `dst` bytes into the stage (none where bytes is 0).
@@ -201,31 +199,12 @@ U8_BLOCK_DOT_FN EntryTerms entry_terms(const Args& a, long long e) {
   return EntryTerms{flat, b, a.q_sums[b], a.q_mags[b], a.bin_s[flat] > kSunk};
 }
 
-U8_BLOCK_DOT_FN Consts consts_of(float qa, float qb, float dtrue) {
-  return Consts{__fmul_rn(qa, qa), __fmul_rn(qa, qb), __fmul_rn(__fmul_rn(qb, qb), dtrue)};
-}
-
-// One score from its int32 code dot cc, in the plain version's op order.
+// One score from its int32 code dot cc (u8_epilogue.cuh), NEG_INF where the
+// entry's bin sank or the row is invalid.
 U8_BLOCK_DOT_FN float score(int metric, int32_t cc, const EntryTerms& e, const RowTerms& v, const Consts& k,
                             int d_pad) {
   if (!e.live || !v.valid) return kNegInf;
-  // dequant_dot: (cc + 128 (s_q + s_v) + Dp 128^2), f32(s_q + 128 Dp), f32(s_v + 128 Dp), wrapping as int32 does
-  const uint32_t dp128 = 128u * static_cast<uint32_t>(d_pad);
-  const uint32_t code = static_cast<uint32_t>(cc) + 128u * (static_cast<uint32_t>(e.sum) + static_cast<uint32_t>(v.sum)) +
-                        128u * dp128;
-  const float uq = __int2float_rn(static_cast<int32_t>(static_cast<uint32_t>(e.sum) + dp128));
-  const float uv = __int2float_rn(static_cast<int32_t>(static_cast<uint32_t>(v.sum) + dp128));
-  const float dot = __fadd_rn(__fadd_rn(__fmul_rn(k.aa, __int2float_rn(static_cast<int32_t>(code))),
-                                        __fmul_rn(k.ab, __fadd_rn(uq, uv))),
-                              k.bbd);
-  if (metric == kDot) return dot;
-  if (metric == kCosine) {
-    const float den = __fmul_rn(e.mag, v.mag);
-    return den > kEps ? __fdiv_rn(dot, den) : 0.0f;  // safe_div
-  }
-  // euclidean: -sqrt(clamp_min((|q|^2 + |v|^2) - 2 dot, 0)); a NaN stays a NaN, as clamp_min keeps it
-  const float d2 = __fsub_rn(__fadd_rn(__fmul_rn(e.mag, e.mag), __fmul_rn(v.mag, v.mag)), __fmul_rn(2.0f, dot));
-  return -__fsqrt_rn(d2 < 0.0f ? 0.0f : d2);
+  return u8_epilogue::score(metric, cc, e.sum, e.mag, v.sum, v.mag, k, d_pad);
 }
 
 U8_BLOCK_DOT_FN uint32_t lds32(const int8_t* p) { return *reinterpret_cast<const uint32_t*>(p); }

@@ -92,6 +92,27 @@ def safe_div(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
     return torch.where(den > _EPS, num / torch.clamp_min(den, _EPS), 0.0)
 
 
+def take_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]`` for ids (any shape, >= 0) by one ``index_select``,
+    which the CPU runs an order of magnitude faster than advanced indexing
+    for short rows."""
+    return torch.index_select(table, 0, ids.reshape(-1)).reshape(*ids.shape, *table.shape[1:])
+
+
+def cos_or_dot(metric: str, dot, qmags, cmags):
+    """Candidate scores from their dequantized dots ``dot`` (Q, ...), the
+    queries' magnitudes (Q,) and the candidates' ``cmags`` (shaped as
+    ``dot``): the dot itself, cosine, or the negated euclidean distance."""
+    if metric == "dot":
+        return dot
+    if metric == "cosine":
+        return safe_div(dot, qmags[:, None] * cmags)
+    if metric == "euclidean":
+        d2 = qmags[:, None] ** 2 + cmags**2 - 2.0 * dot
+        return -sqrt_rn(torch.clamp_min(d2, 0.0))
+    raise ValueError(metric)
+
+
 def dequant_dot(q: QuantizedU8, cc: torch.Tensor, vsums: torch.Tensor, d_pad: int) -> torch.Tensor:
     """Dequantized x̂·ŷ from int32 code dots ``cc`` (Q, N) and the rows' code
     sums ``vsums`` (broadcastable to (Q, N))."""

@@ -44,7 +44,8 @@ from typing import NamedTuple
 import torch
 
 from cosdata_tpu_torch.ops import distance as D
-from cosdata_tpu_torch.ops.storage import gather_queries, score_table, scores_gathered, take_rows, word_major_rows
+from cosdata_tpu_torch.ops.distance import take_rows
+from cosdata_tpu_torch.ops.storage import gather_queries, score_table, scores_gathered, word_major_rows
 from cosdata_tpu_torch.ops.topk import NEG_INF, lax_top_k, unique_mask_ids
 
 #: beam waves between two host checks for an open frontier
@@ -80,8 +81,7 @@ def _init_beam(metric, kind, d, ef, vcap, q, store, start_ids, bitmask_w=0) -> B
     """The initial beam from (B, S) start ids (-1 padded)."""
     b, s = start_ids.shape
     uniq = unique_mask_ids(start_ids)
-    scores = scores_gathered(metric, kind, d, q, store, start_ids)
-    scores = torch.where(uniq, scores, NEG_INF)
+    scores = scores_gathered(metric, kind, d, q, store, start_ids, uniq)
     if bitmask_w:
         visited = torch.zeros((b, bitmask_w), dtype=torch.int32, device=start_ids.device)
         _, word, bitv = _probe_bits(visited, start_ids)
@@ -152,7 +152,7 @@ def beam_search(
             in_vis = (nbrs[:, :, None] == visited[:, None, :]).any(-1)
             fresh = uniq & ~in_beam & ~in_vis & (nbrs >= 0)
         # 4. score the fresh candidates
-        nscores = torch.where(fresh, scores_gathered(metric, kind, d, q, store, nbrs), NEG_INF)
+        nscores = scores_gathered(metric, kind, d, q, store, nbrs, fresh)
         nids = torch.where(fresh, nbrs, -1)
         if not bitmask_w:
             # 5. record the wave in the ring
@@ -205,8 +205,9 @@ def beam_wave_merge(metric: str, d: int, q, chunk, slots, nbrs, ids, scores, exp
     unique uploaded rows (``slots`` (B, K): each candidate's row in it, -1
     for none), and merge them into the beam. Returns (ids, scores,
     expanded)."""
-    nscores = torch.where(slots >= 0, scores_gathered(metric, "u8", d, q, chunk, torch.clamp_min(slots, 0)), NEG_INF)
-    return _merge_beam(ids, scores, expanded, torch.where(slots >= 0, nbrs, -1), nscores)
+    live = slots >= 0
+    nscores = scores_gathered(metric, "u8", d, q, chunk, slots, live)
+    return _merge_beam(ids, scores, expanded, torch.where(live, nbrs, -1), nscores)
 
 
 def beam_hostcodes_init(metric: str, d: int, ef: int, bitmask_w: int, q, chunk, slots, start_ids):
@@ -215,8 +216,7 @@ def beam_hostcodes_init(metric: str, d: int, ef: int, bitmask_w: int, q, chunk, 
     and keep the top ``ef``. Returns (ids, scores, expanded, visited)."""
     b, s = start_ids.shape
     uniq = unique_mask_ids(start_ids)
-    sc = scores_gathered(metric, "u8", d, q, chunk, torch.clamp_min(slots, 0))
-    sc = torch.where(uniq & (slots >= 0), sc, NEG_INF)
+    sc = scores_gathered(metric, "u8", d, q, chunk, slots, uniq & (slots >= 0))
     visited = torch.zeros((b, bitmask_w), dtype=torch.int32, device=start_ids.device)
     _, word, bitv = _probe_bits(visited, start_ids)
     _mark_bits(visited, word, bitv, uniq & (start_ids >= 0))

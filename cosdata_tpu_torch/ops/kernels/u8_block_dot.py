@@ -30,7 +30,6 @@ import torch
 from cosdata_tpu_torch.ops import distance as D
 from cosdata_tpu_torch.ops.kernels.nvcc import CudaLibrary
 from cosdata_tpu_torch.ops.quantize import QuantizedU8
-from cosdata_tpu_torch.ops.storage import cos_or_dot
 from cosdata_tpu_torch.ops.topk import NEG_INF
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -69,14 +68,14 @@ def block_scores_plain(metric: str, d_pad: int, group: int, q: QuantizedU8, stor
                        valid: torch.Tensor, bin_s: torch.Tensor, block_ids: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of the kernel: the int32 dots
     (:func:`u8_block_dot_plain`), :func:`distance.dequant_dot`,
-    :func:`storage.cos_or_dot`, then NEG_INF where the row is invalid or
+    :func:`distance.cos_or_dot`, then NEG_INF where the row is invalid or
     its bin sank (``bin_s <= NEG_INF / 2``)."""
     b, k = block_ids.shape
     cap_g = store.data.shape[0] // group
     p_total = k * group
     cc = u8_block_dot_plain(q.data, store.data, block_ids, group)
     dot = D.dequant_dot(q, cc, store.sums.view(cap_g, group)[block_ids].view(b, p_total), d_pad)
-    sc = cos_or_dot(metric, dot, q.mags, store.mags.view(cap_g, group)[block_ids].view(b, p_total))
+    sc = D.cos_or_dot(metric, dot, q.mags, store.mags.view(cap_g, group)[block_ids].view(b, p_total))
     live = valid.view(cap_g, group)[block_ids].view(b, p_total) & (bin_s > NEG_INF / 2).repeat_interleave(group, 1)
     return torch.where(live, sc, NEG_INF)
 

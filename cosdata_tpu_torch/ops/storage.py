@@ -46,7 +46,10 @@ import torch
 
 from cosdata_tpu_torch.ops import distance as D
 from cosdata_tpu_torch.ops import quantize as Q
+from cosdata_tpu_torch.ops.distance import cos_or_dot, take_rows
 from cosdata_tpu_torch.ops.kernels.subbyte_scan import word_major_codes
+from cosdata_tpu_torch.ops.kernels import u8_row_dot
+from cosdata_tpu_torch.ops.topk import NEG_INF
 from cosdata_tpu_torch.store.chunked import DirtyTracker
 
 _LANE = 128
@@ -548,17 +551,6 @@ class VectorStore:
         return store
 
 
-def cos_or_dot(metric: str, dot, qmags, cmags):
-    if metric == "dot":
-        return dot
-    if metric == "cosine":
-        return D.safe_div(dot, qmags[:, None] * cmags)
-    if metric == "euclidean":
-        d2 = qmags[:, None] ** 2 + cmags**2 - 2.0 * dot
-        return -D.sqrt_rn(torch.clamp_min(d2, 0.0))
-    raise ValueError(metric)
-
-
 def gather_queries(kind: str, store, ids: torch.Tensor):
     """Rows ``ids`` of a quantized store as a query batch of the same type
     (``kind`` is the store's; f16/f32 rows stay in their dtype)."""
@@ -567,13 +559,6 @@ def gather_queries(kind: str, store, ids: torch.Tensor):
     if kind == "u8":
         return store._replace(data=store.data[ids], sums=store.sums[ids], mags=store.mags[ids])
     return store._replace(data=store.data[ids], mags=store.mags[ids])
-
-
-def take_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """``table[ids]`` for ids (any shape, >= 0) by one ``index_select``,
-    which the CPU runs an order of magnitude faster than advanced indexing
-    for short rows."""
-    return torch.index_select(table, 0, ids.reshape(-1)).reshape(*ids.shape, *table.shape[1:])
 
 
 def word_major_rows(planes: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -586,16 +571,20 @@ def word_major_rows(planes: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     return word_major_codes(rows).reshape(*ids.shape, 32 * planes.shape[2])
 
 
-def scores_gathered(metric: str, kind: str, d: int, q, store, ids: torch.Tensor):
+def scores_gathered(metric: str, kind: str, d: int, q, store, ids: torch.Tensor,
+                    live: torch.Tensor | None = None):
     """Per-query candidate scores: ids (Q, K) -> (Q, K), ``kind`` in
-    {"u8", "subbyte", "float"}; negative ids are clamped to row 0 (callers
-    mask them out). The code products are exact (``distance.diag_code_dot``;
-    sub-byte codes on both sides in :func:`word_major_rows`' order)."""
+    {"u8", "subbyte", "float"}; negative ids are clamped to row 0, and
+    entries where ``live`` ((Q, K) bool, None for all) is False score
+    NEG_INF. u8 codes take the u8_row_dot kernel (``kernels/u8_row_dot.py``),
+    which reads no row for such an entry. The code products are exact
+    (``distance.diag_code_dot``; sub-byte codes on both sides in
+    :func:`word_major_rows`' order)."""
+    if kind == "u8":
+        return u8_row_dot.u8_row_dot(metric, d, q, store, ids.contiguous(),
+                                     None if live is None else live.contiguous())
     safe = torch.clamp_min(ids, 0)
     cmags = take_rows(store.mags, safe)
-    if kind == "u8":
-        cc = D.diag_code_dot(q.data, take_rows(store.data, safe))
-        return cos_or_dot(metric, D.dequant_dot(q, cc, take_rows(store.sums, safe), d), q.mags, cmags)
     if kind == "subbyte":
         qvals = word_major_codes(q.planes)
         code_dot = D.diag_code_dot(qvals, word_major_rows(store.planes, safe)).to(torch.float32)
@@ -605,9 +594,10 @@ def scores_gathered(metric: str, kind: str, d: int, q, store, ids: torch.Tensor)
             + q.a * q.b * (q.sums.to(torch.float32)[:, None] + csums)
             + q.b * q.b * q.dtrue
         )
-        return cos_or_dot(metric, dot, q.mags, cmags)
-    dot = D.diag_dot(q.data.to(torch.float32), take_rows(store.data, safe).to(torch.float32))
-    return cos_or_dot(metric, dot, q.mags, cmags)
+    else:
+        dot = D.diag_dot(q.data.to(torch.float32), take_rows(store.data, safe).to(torch.float32))
+    sc = cos_or_dot(metric, dot, q.mags, cmags)
+    return sc if live is None else torch.where(live, sc, NEG_INF)
 
 
 def score_table(metric: str, kind: str, d: int, q, store) -> torch.Tensor:

@@ -16,8 +16,11 @@ its sorted values held bit for bit against its plain version;
 u8_block_dot (stage 4: the sort and the kernel) by cosine at B=1024, 64
 blocks of 32 rows a query, Dp=768, on random blocks of the 1M table, on a
 65,536-row chunk (50 blocks a query) and on the bins K1 picks for 1,024
-clustered queries, its scores held bit for bit, beside the sort alone.
-Needs one
+clustered queries, its scores held bit for bit, beside the sort alone;
+u8_row_dot (the graph beam's candidate scoring) by cosine at B=1024 on
+random rows of the 1M table drawn with replacement, a level-0 wave (K=256)
+with half and with all of the candidates live and an upper level (K=128
+over 100,000 rows) half live, its scores held bit for bit. Needs one
 CUDA card and nvcc; each variant's SASS is counted by opcode where
 cuobjdump is found. Run from the repository root:
 
@@ -47,6 +50,12 @@ Variants:
   bd_s128         slices of 128 bytes (one TMA box a step)
   bd_no_products  the walk and its copies without the products and the
                   epilogue (timing only)
+  rd              u8_row_dot as it is (each slot's live flag read first,
+                  a live slot's id checked against the table: a trap)
+  rd_id_first     each slot's id read and checked before its live flag,
+                  so that a dead slot's id past the table traps too
+  rd_nan          a live id past the table scoring NaN in place of the
+                  trap
 """
 
 from __future__ import annotations
@@ -63,13 +72,13 @@ from pathlib import Path
 
 import torch
 
-from cosdata_tpu_torch.ops.kernels import group_topk, nvcc, subbyte_scan, u8_block_dot, u8_scan
+from cosdata_tpu_torch.ops.kernels import group_topk, nvcc, subbyte_scan, u8_block_dot, u8_row_dot, u8_scan
 from cosdata_tpu_torch.ops.quantize import quantize_subbyte, quantize_u8
 from cosdata_tpu_torch.tools.measure import card_line, clustered, device_ms, quaternary_scan_merges
 
 CSRC = Path(nvcc.__file__).resolve().parents[2] / "csrc"
-K1, K2, GT, BD = "u8_bin_max", "subbyte_code_scores", "group_topk", "u8_block_dot"
-MODULES = {K1: u8_scan, K2: subbyte_scan, GT: group_topk, BD: u8_block_dot}
+K1, K2, GT, BD, RD = "u8_bin_max", "subbyte_code_scores", "group_topk", "u8_block_dot", "u8_row_dot"
+MODULES = {K1: u8_scan, K2: subbyte_scan, GT: group_topk, BD: u8_block_dot, RD: u8_row_dot}
 VARIANTS = {
     "k1": (K1, []),
     "k2": (K2, []),
@@ -90,6 +99,15 @@ VARIANTS = {
     "bd_s128": (BD, [("u8_block_dot.cuh", "constexpr int kSlice = 256;", "constexpr int kSlice = 128;")]),
     "bd_no_products": (BD, [("      slice_products(sh.rows[st], sh.queries[st], m0, n0, slice_width(a.dp, s), lane, acc);\n"
                              "      if (s == slices - 1) write_scores(", "      if (s == slices - 1 && a.dp < 0) write_scores(")]),
+    "rd": (RD, []),
+    "rd_id_first": (RD, [("u8_row_dot.cuh",
+                          "  if (a.live != nullptr && a.live[e] == 0) return kDead;\n"
+                          "  const long long id = a.ids[e];\n  if (id >= a.rows) __trap();\n",
+                          "  const long long id = a.ids[e];\n  if (id >= a.rows) __trap();\n"
+                          "  if (a.live != nullptr && a.live[e] == 0) return kDead;\n")]),
+    "rd_nan": (RD, [("u8_row_dot.cuh", "  if (id >= a.rows) __trap();\n", "  if (id >= a.rows) return -2;\n"),
+                    ("u8_row_dot.cuh", "row == kDead ? kNegInf\n",
+                     "row == kDead ? kNegInf : row == -2 ? __int_as_float(0x7fffffff)\n")]),
 }
 #: gt_trace adds an output, trace (B, 4) int32, the last argument of the
 #: launch: each row's warp's time (the global timer, ns) in four phases: T,
@@ -196,6 +214,21 @@ def block_dot_inputs(store, valid, gen, dev) -> dict:
     return cases
 
 
+def row_dot_inputs(store, gen, dev) -> dict:
+    """The graph beam's scoring inputs (queries, store, ids, live) at
+    B=1024, Dp=768: a level-0 wave of 256 random rows of the 1M table a
+    query (drawn with replacement), half and all of them live, and an upper
+    level's 128 of the first 100,000 rows, half live."""
+    q = quantize_u8(torch.rand((1024, 768), generator=gen, device=dev) * 2 - 1, -0.6, 0.7, 768)
+    upper = store._replace(data=store.data[:100_000], sums=store.sums[:100_000], mags=store.mags[:100_000])
+    cases = {}
+    for where, st, k, share in (("level-0 wave, half live", store, 256, 0.5), ("level-0 wave, all live", store, 256, 1.0),
+                                ("upper level, half live", upper, 128, 0.5)):
+        ids = torch.randint(0, st.data.shape[0], (1024, k), generator=gen, device=dev)
+        cases[where] = (q, st, ids, torch.rand((1024, k), generator=gen, device=dev) < share)
+    return cases
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("FAIL: the variants run on a CUDA card")
@@ -204,7 +237,7 @@ def main() -> None:
     card = card_line()
     gen = torch.Generator(device=dev).manual_seed(0)
     kernels = {VARIANTS[name][0] for name in names}
-    if kernels & {K1, K2, BD}:
+    if kernels & {K1, K2, BD, RD}:
         x = torch.rand((1_048_576, 768), generator=gen, device=dev) * 2 - 1
         store = quantize_u8(x, -0.6, 0.7, 768)
         sub = quantize_subbyte(x[:65_536], 2, 768)
@@ -219,6 +252,8 @@ def main() -> None:
         del xc, qc
     if BD in kernels:  # stage 4's inputs: random blocks of the 1M table, a chunk's, K1's bins for clustered queries
         stage4 = block_dot_inputs(store, valid, gen, dev)
+    if RD in kernels:  # the graph beam's inputs: random rows of the 1M table
+        beam = row_dot_inputs(store, gen, dev)
     with tempfile.TemporaryDirectory() as tmp, concurrent.futures.ThreadPoolExecutor(len(names)) as ex:
         for name, lib, log in ex.map(lambda n: build(n, Path(tmp)), names):
             kernel = VARIANTS[name][0]
@@ -240,6 +275,14 @@ def main() -> None:
                         same = torch.equal(got.view(torch.int32), want.view(torch.int32))
                         ms = [device_ms(run, 20) for _ in range(2)]
                         print(f"  {where} merge: values bit for bit {same}, {ms[0]:.4f}/{ms[1]:.4f} ms", flush=True)
+                    continue
+                if kernel == RD:
+                    for where, (q, st, ids, live) in beam.items():
+                        run = lambda: u8_row_dot.u8_row_dot("cosine", 768, q, st, ids, live)  # noqa: E731
+                        want = u8_row_dot.row_scores_plain("cosine", 768, q, st, ids, live)
+                        same = torch.equal(run().view(torch.int32), want.view(torch.int32))
+                        ms = [device_ms(run, 20) for _ in range(2)]
+                        print(f"  {where}: scores bit for bit {same}, {ms[0]:.4f}/{ms[1]:.4f} ms", flush=True)
                     continue
                 if kernel == BD:
                     for where, (q, st, v, bin_s, ids) in stage4.items():

@@ -89,6 +89,24 @@ def block_dot_bytes(block_ids: torch.Tensor, group: int, dp: int) -> tuple[int, 
     return distinct * block + fixed, b * k * block + fixed
 
 
+def row_dot_bytes(ids: torch.Tensor, live: torch.Tensor | None, dp: int) -> tuple[int, int]:
+    """The bytes the graph beam's candidate scoring (``kernels/u8_row_dot.py``)
+    must move for (B, K) candidate ``ids`` (row 0 where negative) of rows of
+    ``dp`` bytes, where ``live`` (bool (B, K), None for all) is True: each
+    distinct live row read once, its codes with its int32 sum and f32
+    magnitude; each slot's int64 id and its live byte; the query codes with
+    their sums and magnitudes; the (B, K) f32 scores written. Then the same
+    with each live candidate reading its own row, what the query-major
+    kernel reads."""
+    b, k = ids.shape
+    safe = torch.clamp_min(ids, 0)
+    live_ids = safe.reshape(-1) if live is None else safe[live]
+    mask = 0 if live is None else b * k
+    fixed = 8 * b * k + mask + b * (dp + 8) + 4 * b * k
+    distinct = int(torch.unique(live_ids).numel())
+    return distinct * (dp + 8) + fixed, live_ids.numel() * (dp + 8) + fixed
+
+
 def clustered(n: int, nq: int, d: int, gen: torch.Generator, dev, *more: int):
     """bench.py's gen_clustered formula: n//100 unit centres, noise 0.5/sqrt(d), unit rows:
     n corpus rows, nq queries, then one more batch of queries per entry of ``more``."""

@@ -1,7 +1,8 @@
-// A host emulation of the CUDA features that a kernel of one warp a block
-// uses (cosdata_tpu_torch/csrc/group_topk.cu): each block's 32 threads run
-// as std::threads, meeting at every warp intrinsic. Asynchronous copies are
-// plain copies. For tests on machines without a card.
+// A host emulation of the CUDA features that a kernel's warps use
+// (cosdata_tpu_torch/csrc/group_topk.cu, u8_row_dot.cuh): a warp's 32
+// threads run as std::threads, meeting at every warp intrinsic.
+// Asynchronous copies are plain copies. For tests on machines without a
+// card.
 #pragma once
 
 #include <algorithm>
@@ -65,6 +66,13 @@ T __shfl_up_sync(unsigned, T x, int off) {
   exchange(x, a);
   const int l = threadIdx.x;
   return l >= off ? as<T>(a[l - off]) : x;
+}
+
+template <class T>
+T __shfl_xor_sync(unsigned, T x, int mask) {
+  uint64_t a[32];
+  exchange(x, a);
+  return as<T>(a[(threadIdx.x ^ mask) & 31]);
 }
 
 template <class T>
